@@ -5,11 +5,18 @@
 Phases, each reported on its own lines:
   1. device: the card, its power limit, the torch/CUDA versions, TF32 flags;
   2. build: compiles the port's CUDA kernels (csrc/*.cu) with nvcc;
-  3. kernels: each kernel against its plain PyTorch version on the card, at
-     the main-path shapes and at an odd shape, with times of both;
-  4. slice: the packaged `sde_supervised` config through `train_main` (the
-     trainer entry point) for 3 steps at full width, counting kernel launches;
-     and one small train step on the card against the same step on the CPU.
+  3. kernels: each kernel (K1 warp, K2 fused SSIM+L1 error, K3 its
+     gradient) against its plain PyTorch version on the card, at the
+     main-path shapes and at odd shapes, with times of both, of one PyTorch
+     reference call where there is one, and the least time the card could
+     take (bytes over its memory rate, or operations over its f32 rate);
+  4. small steps: one small train step on the card against the same step on
+     the CPU, for the supervised SDE step and for the exp-212 step; a second
+     exp-212 step on each device checks the EMA update at alpha 0.5;
+  5. slices: the packaged configs through `train_main` (the trainer entry
+     point) at full width, counting kernel launches from 0 around each run:
+     `sde_supervised` (3 steps), `exp212_pad_online` with fused_reprojection
+     on (3 steps, the slice's main path) and the same with it off.
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failure raises, so the exit code is
 nonzero and no `ok` line is printed. There is no CPU fallback.
@@ -28,11 +35,13 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 import yaml
 
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.data import synthetic
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine import (
     optim,
+    state,
     train_steps,
     trainer,
 )
@@ -44,16 +53,42 @@ from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops.cuda import 
     warp,
 )
 
-K1_REPLACES = "improving_segmentation_with_selfsupervised_depth_tpu/ops/pallas/warp.py:248"
-K2_REPLACES = ("improving_segmentation_with_selfsupervised_depth_tpu/ops/pallas/"
-               "reprojection.py:90")
+TPU_PKG = "improving_segmentation_with_selfsupervised_depth_tpu"
+K1_REPLACES = f"{TPU_PKG}/ops/pallas/warp.py:248"
+K2_REPLACES = f"{TPU_PKG}/ops/pallas/reprojection.py:90"
+K3_REPLACES = f"{TPU_PKG}/ops/pallas/reprojection.py:225"
 PKG = "improving_segmentation_with_selfsupervised_depth_tpu_torch"
-KERNEL_TOL = 1e-5  # both sides f32 with identical corner indices / window sums
-STEP_RTOL = 1e-3   # small train step, card vs CPU: op-order rounding only
+KERNEL_TOL = 1e-5  # K1, K2: both sides f32, identical corner indices / window sums
+# K3: max |kernel - plain| <= K3_REL_TOL * max |plain|. The same formula in the
+# same order without FMA contraction on both sides; flat windows amplify a
+# last-bit difference of a variance term by up to 1/C2^2 in the coefficients,
+# which is why the bound is relative to the gradient's own scale.
+K3_REL_TOL = 1e-5
+STEP_RTOL = 1e-3   # small train steps, card vs CPU: op-order rounding only
+
+# NVIDIA H100 SXM data sheet: HBM3 rate and the f32 rate outside the tensor
+# cores (the kernels do f32 arithmetic on CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# f32 operations per (pixel, channel), counted from the kernels' arithmetic:
+# K1 ~17 per channel plus ~10 per grid pixel for the corner weights; K2 72
+# for the five 3x3 window sums plus ~33 for SSIM, clip and L1; K3 ~127 per
+# center (window sums, statistics, clip subgradient, five coefficients) plus
+# ~58 per output (five 3x3 box sums, the combination, fold and L1 term)
+K1_OPS_PER_CHANNEL, K1_OPS_PER_PIXEL = 17, 10
+K2_OPS = 105
+K3_OPS = 185
 
 
 def _run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
+
+
+def _bound(n_bytes, n_ops):
+    """(least time in ms, "bytes" or "operations") on the card."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_device():
@@ -64,7 +99,7 @@ def phase_device():
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
-    print(f"[device] nvidia-smi: {smi}")
+    print(smi)
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}")
@@ -85,7 +120,7 @@ def phase_build():
     log = so.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] ptxas: {line.strip()}")
     return secs
 
@@ -128,11 +163,30 @@ def _warp_inputs(n, s, h, w, seed):
     return img, grids
 
 
-def phase_kernels():
-    records = {}
+def _reprojection_inputs(n, reps, h, w, seed):
+    """pred (N*reps, 3, H, W), target (N, 3, H, W), g (N*reps, 1, H, W): a flat
+    block in both (the variance terms cancel) and a block where pred equals
+    target (SSIM exactly 1, |u| = 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pred = torch.rand((n * reps, 3, h, w), generator=gen, device="cuda")
+    target = torch.rand((n, 3, h, w), generator=gen, device="cuda")
+    pred[:, :, : h // 2, : w // 2] = 0.37
+    target[:, :, : h // 2, : w // 3] = 0.61
+    pred[:, :, h // 2:, w // 2:] = target.repeat_interleave(reps, 0)[:, :, h // 2:, w // 2:]
+    g = torch.randn((n * reps, 1, h, w), generator=gen, device="cuda")
+    return pred, target, g
 
-    # K1 at the main-path shape (batch 8, 512^2, 4 scale grids per image) and odd
-    for (n, s, h, w) in ((8, 4, 512, 512), (2, 2, 37, 61)):
+
+def phase_kernels():
+    """Each kernel against its plain version at every full-width shape the
+    sde and exp-212 paths give it (512^2, batch 8 and 4) and at odd shapes;
+    times at the exp-212 main-path shape (batch 4, 4 scales per frame)."""
+    records = {}
+    f32 = 4
+
+    # K1: one launch per source frame warps the frame at its 4 scale grids;
+    # exp-212 (batch 4, timed), sde (batch 8) and an odd shape
+    for i, (n, s, h, w) in enumerate(((4, 4, 512, 512), (8, 4, 512, 512), (2, 2, 37, 61))):
         img, grids = _warp_inputs(n, s, h, w, seed=n * 1000 + h)
         ix, iy = warp.unnormalize_grid(grids, h, w)
         ix, iy = ix.contiguous(), iy.contiguous()
@@ -141,134 +195,265 @@ def phase_kernels():
         torch.cuda.synchronize()
         errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
         print(f"[kernels] K1 warp img {(n, 3, h, w)} S={s}: max|err| out/dfx/dfy = "
-              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e}")
+              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tolerance {KERNEL_TOL:.0e})")
         if not all(math.isfinite(e) and e <= KERNEL_TOL for e in errs):
             raise AssertionError(f"K1 disagrees with its plain version: {errs}")
-        if h == 512:
-            ms = _time_ms(lambda: warp.warp_bilinear_nchw(img, ix, iy, reps=s))
-            plain_ms = _time_ms(lambda: warp.warp_bilinear_nchw_plain(img, ix, iy, reps=s))
-            print(f"[kernels] K1 warp main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-            records["warp"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms}
-        else:
+        if i > 0:
             records["warp"]["max_abs_err"] = max(records["warp"]["max_abs_err"], *errs)
+            continue
+        ms = _time_ms(lambda: warp.warp_bilinear_nchw(img, ix, iy, reps=s))
+        plain_ms = _time_ms(lambda: warp.warp_bilinear_nchw_plain(img, ix, iy, reps=s))
+        # the PyTorch reference computes the `out` plane alone (no dfx/dfy)
+        img_rep = img.repeat_interleave(s, 0)
+        lib_ms = _time_ms(lambda: F.grid_sample(img_rep, grids, mode="bilinear",
+                                                padding_mode="border", align_corners=True))
+        m = n * s
+        bound_ms, bound_by = _bound(
+            f32 * (n * 3 * h * w + 2 * m * h * w + 3 * m * 3 * h * w),
+            m * h * w * (K1_OPS_PER_PIXEL + 3 * K1_OPS_PER_CHANNEL))
+        print(f"[kernels] K1 warp main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"F.grid_sample (out plane only, partial) {lib_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by})")
+        records["warp"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+                           "library_call": "F.grid_sample bilinear border, out plane only"}
 
-    # K2 at the main-path shape (identity losses: batch 8, 512^2) and odd; a flat
-    # block makes the variance terms cancel, the case the summation order guards
-    for (n, h, w) in ((8, 512, 512), (2, 37, 61)):
-        gen = torch.Generator(device="cuda").manual_seed(7 + h)
-        pred = torch.rand((n, 3, h, w), generator=gen, device="cuda")
-        target = torch.rand((n, 3, h, w), generator=gen, device="cuda")
-        pred[:, :, : h // 2, : w // 2] = 0.37
-        target[:, :, : h // 2, : w // 3] = 0.61
-        got = reprojection.reprojection_error(pred, target)
-        ref = reprojection.reprojection_error_plain(pred, target)
+    # K2 and K3: the per-scale pred error of one exp-212 source frame, its 4
+    # scales against one target (reps 4, timed); the identity errors of sde
+    # (batch 8) and exp-212 (batch 4) with reps 1; odd shapes with reps 1 and 2
+    for i, (n, reps, h, w) in enumerate(((4, 4, 512, 512), (8, 1, 512, 512), (4, 1, 512, 512),
+                                         (2, 1, 37, 61), (2, 2, 37, 61))):
+        pred, target, g = _reprojection_inputs(n, reps, h, w, seed=7 + h + reps)
+        got = reprojection.reprojection_error(pred, target, reps)
+        ref = reprojection.reprojection_error_plain(pred, target, reps)
+        dgot = reprojection.reprojection_error_grad(pred, target, g, reps)
+        dref = reprojection.reprojection_error_grad_plain(pred, target, g, reps)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        print(f"[kernels] K2 reprojection {(n, 3, h, w)}: max|err| = {err:.3e}")
-        if not (math.isfinite(err) and err <= KERNEL_TOL) or got.shape != (n, 1, h, w):
+        derr = float((dgot - dref).abs().max())
+        dscale = float(dref.abs().max())
+        shape = (n * reps, 3, h, w)
+        print(f"[kernels] K2 reprojection pred {shape} reps {reps}: max|err| = {err:.3e} "
+              f"(tolerance {KERNEL_TOL:.0e})")
+        print(f"[kernels] K3 reprojection grad pred {shape} reps {reps}: max|err| = "
+              f"{derr:.3e}, max|plain| = {dscale:.3e}, relative {derr / dscale:.3e} "
+              f"(tolerance {K3_REL_TOL:.0e} relative)")
+        if not (math.isfinite(err) and err <= KERNEL_TOL) or got.shape != (n * reps, 1, h, w):
             raise AssertionError(f"K2 disagrees with its plain version: {err}")
-        if h == 512:
-            ms = _time_ms(lambda: reprojection.reprojection_error(pred, target))
-            plain_ms = _time_ms(lambda: reprojection.reprojection_error_plain(pred, target))
-            print(f"[kernels] K2 reprojection main shape: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms")
-            records["reprojection"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        else:
+        if not (math.isfinite(derr) and derr <= K3_REL_TOL * dscale) or dgot.shape != shape:
+            raise AssertionError(f"K3 disagrees with its plain version: {derr} of {dscale}")
+        if i > 0:
             records["reprojection"]["max_abs_err"] = max(
                 records["reprojection"]["max_abs_err"], err)
+            records["reprojection_grad"]["max_abs_err"] = max(
+                records["reprojection_grad"]["max_abs_err"], derr)
+            continue
+        m, px = n * reps, h * w
+        ms = _time_ms(lambda: reprojection.reprojection_error(pred, target, reps))
+        plain_ms = _time_ms(lambda: reprojection.reprojection_error_plain(pred, target, reps))
+        bound_ms, bound_by = _bound(f32 * (m * 3 * px + n * 3 * px + m * px), m * 3 * px * K2_OPS)
+        print(f"[kernels] K2 reprojection main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound_ms:.4f} ms ({bound_by})")
+        records["reprojection"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                   "bound_ms": bound_ms, "bound_by": bound_by,
+                                   "library_ms": None}
+        dms = _time_ms(lambda: reprojection.reprojection_error_grad(pred, target, g, reps))
+        dplain_ms = _time_ms(
+            lambda: reprojection.reprojection_error_grad_plain(pred, target, g, reps))
+        # the PyTorch reference: autograd's backward of the f32 plain chain
+        leaf = pred.clone().requires_grad_()
+        chain = reprojection.reprojection_error_plain(leaf, target, reps)
+        lib_ms = _time_ms(lambda: torch.autograd.grad(chain, leaf, g, retain_graph=True))
+        del chain, leaf
+        dbound_ms, dbound_by = _bound(f32 * (2 * m * 3 * px + n * 3 * px + m * px),
+                                      m * 3 * px * K3_OPS)
+        print(f"[kernels] K3 reprojection grad main shape: kernel {dms:.4f} ms, plain "
+              f"{dplain_ms:.4f} ms, autograd of the plain chain {lib_ms:.4f} ms, "
+              f"bound {dbound_ms:.4f} ms ({dbound_by})")
+        records["reprojection_grad"] = {
+            "max_abs_err": derr, "max_abs_plain": dscale, "ms": dms, "plain_ms": dplain_ms,
+            "bound_ms": dbound_ms, "bound_by": dbound_by, "library_ms": lib_ms,
+            "library_call": "torch.autograd backward of the f32 plain SSIM+L1 chain"}
     return records
 
 
-def _tiny_cfg():
-    """The supervised step at a small size (resnet18, 64x128, batch 2)."""
-    cfg = _packaged_cfg()
-    cfg["model"]["backbone_name"] = "resnet18"
-    cfg["model"]["depth_args"] = {"intermediate_aspp": True, "aspp_rates": [1, 2]}
-    cfg["monodepth_options"].update(height=64, width=128)
-    cfg["training"].update(batch_size=2, train_iters=1, photometric_dtype=None)
-    return cfg
-
-
-def _packaged_cfg():
-    path = Path(__file__).resolve().parent / PKG / "configs" / "sde_supervised_synthetic.yml"
+def _packaged_cfg(name):
+    path = Path(__file__).resolve().parent / PKG / "configs" / name
     with open(path) as fp:
         return yaml.safe_load(fp)
 
 
-def phase_small_step():
-    """One small train step on the card (kernels) against the same step on the
-    CPU (plain versions), from the same weights, batch and tie-break noise."""
-    cfg = _tiny_cfg()
-    h, w = cfg["monodepth_options"]["height"], cfg["monodepth_options"]["width"]
-    torch.manual_seed(0)
-    cpu_model = joint.build_model(cfg["model"], 19)
-    for m in cpu_model.modules():  # the two devices draw different dropout masks
+def _no_dropout(model):
+    for m in model.modules():  # the two devices draw different dropout masks
         if isinstance(m, (torch.nn.Dropout, torch.nn.Dropout2d)):
             m.p = 0.0
-    gpu_model = copy.deepcopy(cpu_model).cuda()
+    return model
+
+
+def _params(module):
+    return {k: p.detach().clone() for k, p in module.named_parameters()}
+
+
+def _small_step(label, cfg_name, n):
+    """A small train step (resnet18, 64x128, batch n) on the card (kernels)
+    against the same step on the CPU (plain versions): same weights, batches
+    and draws, f32 convolutions on both sides. Checks the losses, the
+    parameters and, for the semi-supervised step, the EMA teacher's
+    parameters after the step.
+
+    The semi-supervised step then runs a second time on each device, and
+    the teacher must be exactly 0.5 teacher + 0.5 student in the EMA's
+    submodules and unchanged elsewhere (the first update copies the
+    student). The second step is not compared card vs CPU: its pseudo-label
+    threshold and depthcomp mask turn the first step's rounding differences
+    into discrete flips."""
+    cfg = _packaged_cfg(cfg_name)
+    cfg["model"]["backbone_name"] = "resnet18"
+    cfg["model"]["depth_args"] = {"intermediate_aspp": True, "aspp_rates": [1, 2]}
+    cfg["training"]["photometric_dtype"] = None
+    h, w = 64, 128
     step_cfg = train_steps.step_config_from_cfg(cfg)
-    batch = synthetic.make_synthetic_batch(2, h, w, seed=3)
-    noise = torch.randn((2, 2, h, w), generator=torch.Generator().manual_seed(5))
+    devices = ("cpu", "cuda")
+    torch.manual_seed(0)
+    models = [_no_dropout(joint.build_model(cfg["model"], 19))]
+    models.append(copy.deepcopy(models[0]).to(devices[1]))
+    batch = synthetic.make_synthetic_batch(n, h, w, seed=3)
+    ubatch = synthetic.make_synthetic_batch(n, h, w, seed=4, with_unlabeled_extras=True)
+    gen = torch.Generator().manual_seed(5)
+    noise, noise_u = (torch.randn((n, 2, h, w), generator=gen) for _ in range(2))
+    results, after = [], []
     tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False  # f32 on both sides for this check
+    torch.backends.cudnn.allow_tf32 = False
     try:
-        results = []
-        for model, dev in ((cpu_model, "cpu"), (gpu_model, "cuda")):
+        for model, dev in zip(models, devices):
+            kw = {}
+            if step_cfg.use_ema:
+                kw = dict(unlabeled_batch=synthetic.to_device_batch(ubatch, dev),
+                          teacher=state.make_teacher(model),
+                          draws=train_steps.StepDraws(
+                              tie_break_noise_u=noise_u.to(dev), jitter=(1.1, 0.9, 1.2, 0.05),
+                              jitter_apply=0.9, blur_sigma=0.8, blur_apply=0.9))
             opt = optim.build_optimizer(cfg["training"], cfg["model"], model)
-            m = train_steps.train_step(model, opt, synthetic.to_device_batch(batch, dev), step_cfg,
-                                 tie_break_noise=noise.to(dev))
-            results.append({k: float(v) for k, v in m.items()})
+
+            def step():
+                m = train_steps.train_step(model, opt, synthetic.to_device_batch(batch, dev),
+                                           step_cfg, tie_break_noise=noise.to(dev), **kw)
+                return {k: float(v) for k, v in m.items()}
+
+            results.append(step())
+            after.append({"params": _params(model)})
+            if step_cfg.use_ema:
+                after[-1]["EMA params"] = _params(kw["teacher"])
+                second = step()
+                print(f"[{label}] {dev} second step: total_loss {second['total_loss']:.7f}")
+                _check_ema_mix(label, dev, after[-1]["EMA params"], _params(model),
+                               _params(kw["teacher"]), step_cfg.ema_names)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    keys = ("total_loss", "segmentation_loss", "mono_loss")
-    for k in keys:
-        print(f"[small step] {k}: cpu {results[0][k]:.7f} card {results[1][k]:.7f}")
-    for k in keys:
+    for k in results[0]:
         a, b = results[0][k], results[1][k]
+        print(f"[{label}] {k}: cpu {a:.7f} card {b:.7f}")
         if not (math.isfinite(b) and abs(a - b) <= STEP_RTOL * abs(a)):
-            raise AssertionError(f"small step {k}: card {b} vs cpu {a}")
-    diff = max(float((p.detach().cpu() - q.detach()).abs().max())
-               for p, q in zip(gpu_model.parameters(), cpu_model.parameters()))
-    print(f"[small step] max |param card - param cpu| after the step: {diff:.3e}")
-    if not diff <= 1e-4:
-        raise AssertionError(f"small step: updated parameters differ by {diff}")
+            raise AssertionError(f"{label} {k}: card {b} vs cpu {a}")
+    for what in after[0]:
+        cpu_p, dev_p = after[0][what], after[1][what]
+        diff = max(float((dev_p[k].cpu() - cpu_p[k]).abs().max()) for k in cpu_p)
+        print(f"[{label}] max |{what} card - {what} cpu| after the step: {diff:.3e}")
+        if not diff <= 1e-4:
+            raise AssertionError(f"{label}: {what} differ by {diff}")
+    return step_cfg
 
 
-def phase_slice():
-    """The packaged sde_supervised config through train_main, 3 train_steps."""
-    cfg = _packaged_cfg()
-    n_steps = cfg["training"]["train_iters"]
-    torch.cuda.reset_peak_memory_stats()
+def _check_ema_mix(label, dev, ema1, student2, ema2, names):
+    """ema2 = 0.5 ema1 + 0.5 student2 in `names`' submodules, ema1 elsewhere."""
+    mixed = moved = 0
+    err = 0.0
+    for k, e2 in ema2.items():
+        if k.split(".")[1] in names:
+            want = ema1[k] * 0.5 + student2[k] * 0.5
+            mixed += 1
+            moved += int(not torch.equal(e2, ema1[k]))
+        else:
+            want = ema1[k]
+        err = max(err, float((e2 - want).abs().max()))
+    print(f"[{label}] {dev} EMA after the second step (alpha 0.5): {mixed} of {len(ema2)} "
+          f"tensors mixed, {moved} moved; max |teacher - expected| {err:.3e} (tolerance 1e-7)")
+    if not (err <= 1e-7 and moved > 0 and mixed < len(ema2)):
+        raise AssertionError(f"{label}: the EMA update on {dev} is not alpha 0.5 over {names}")
+
+
+def phase_small_steps():
+    _small_step("small sde step", "sde_supervised_synthetic.yml", 2)
+    step_cfg = _small_step("small exp212 step", "exp212_pad_online_synthetic.yml", 4)
+    if not (step_cfg.fused_pred_loss and step_cfg.use_ema):
+        raise AssertionError("the exp212 small step must run K2/K3 and the EMA teacher")
+
+
+def _reset_launches():
     warp.warp_bilinear_nchw.launches = 0
     reprojection.reprojection_error.launches = 0
+    reprojection.reprojection_error_grad.launches = 0
+
+
+def _read_launches():
+    return {"warp": warp.warp_bilinear_nchw.launches,
+            "reprojection": reprojection.reprojection_error.launches,
+            "reprojection_grad": reprojection.reprojection_error_grad.launches}
+
+
+def _run_slice(label, cfg, per_step):
+    """`cfg` through train_main; checks finite moving losses and the kernel
+    launches, `per_step` of each kernel in every step."""
+    n_steps = cfg["training"]["train_iters"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
     records = trainer.train_main(cfg, device="cuda:0")
-    launches = {"warp": warp.warp_bilinear_nchw.launches,
-                "reprojection": reprojection.reprojection_error.launches}
+    launches = _read_launches()
     peak = torch.cuda.max_memory_allocated()
     m = cfg["model"]
-    print(f"[slice] {m['backbone_name']} dilated {m['replace_stride_with_dilation']}, "
-          f"num_ch_dec {m['depth_args']['num_ch_dec']}, batch {cfg['training']['batch_size']} "
-          f"at {cfg['monodepth_options']['height']}x{cfg['monodepth_options']['width']}, "
-          f"{n_steps} steps")
+    print(f"[{label}] {m['backbone_name']} dilated {m['replace_stride_with_dilation']}, "
+          f"{m['segmentation_name']}, num_ch_dec {m['depth_args']['num_ch_dec']}, batch "
+          f"{cfg['training']['batch_size']} at {cfg['monodepth_options']['height']}x"
+          f"{cfg['monodepth_options']['width']}, fused_reprojection "
+          f"{cfg['training'].get('fused_reprojection', False)}, {n_steps} steps")
     for i, r in enumerate(records, start=1):
-        print(f"[slice] step {i}: total {r['total_loss']:.6f} seg {r['segmentation_loss']:.6f} "
-              f"mono {r['mono_loss']:.6f}  step {r['step_seconds']:.4f} s "
+        losses = " ".join(f"{k} {v:.6f}" for k, v in r.items() if k.endswith("loss"))
+        print(f"[{label}] step {i}: {losses}  step {r['step_seconds']:.4f} s "
               f"(batch making {r['data_seconds']:.4f} s)")
     later = [r["step_seconds"] for r in records[1:]]
-    print(f"[slice] mean time of steps 2-{n_steps}: {statistics.mean(later):.4f} s; "
+    print(f"[{label}] mean time of steps 2-{n_steps}: {statistics.mean(later):.4f} s; "
           f"peak memory allocated {peak / 2**30:.3f} GiB; launches {launches}")
     if len(records) != n_steps:
-        raise AssertionError(f"{len(records)} steps ran, {n_steps} asked")
+        raise AssertionError(f"{label}: {len(records)} steps ran, {n_steps} asked")
     for r in records:
         if not all(math.isfinite(v) for v in r.values()):
-            raise AssertionError(f"non-finite loss: {r}")
+            raise AssertionError(f"{label}: non-finite loss: {r}")
     if len({r["total_loss"] for r in records}) == 1:
-        raise AssertionError("total_loss is constant across the steps")
-    # one K1 launch per source frame (all 4 scale grids) and one K2 launch per
-    # source frame (identity loss) in every step
-    expect = 2 * n_steps
-    if launches != {"warp": expect, "reprojection": expect}:
-        raise AssertionError(f"kernel launches {launches}, expected {expect} each")
+        raise AssertionError(f"{label}: total_loss is constant across the steps")
+    expect = {k: v * n_steps for k, v in per_step.items()}
+    if launches != expect:
+        raise AssertionError(f"{label}: kernel launches {launches}, expected {expect}")
+    return launches
+
+
+def phase_slices():
+    # sde: one K1 launch per source frame (all 4 scale grids) and one K2
+    # launch per source frame (identity loss) in every step
+    launches = {"sde_supervised": _run_slice(
+        "slice sde", _packaged_cfg("sde_supervised_synthetic.yml"),
+        {"warp": 2, "reprojection": 2, "reprojection_grad": 0})}
+    # exp-212: two photometric passes (labeled, unlabeled) per step, each one
+    # K1 launch per source frame, one K2 launch per source frame for the
+    # identity error and one for the pred error of all 4 scales, and one K3
+    # launch per source frame in the backward
+    cfg = _packaged_cfg("exp212_pad_online_synthetic.yml")
+    launches["exp212_pad_online"] = _run_slice(
+        "slice exp212", cfg, {"warp": 4, "reprojection": 8, "reprojection_grad": 4})
+    cfg = _packaged_cfg("exp212_pad_online_synthetic.yml")
+    cfg["training"]["fused_reprojection"] = False
+    launches["exp212_pad_online_unfused"] = _run_slice(
+        "slice exp212 unfused", cfg, {"warp": 4, "reprojection": 4, "reprojection_grad": 0})
     return launches
 
 
@@ -276,16 +461,20 @@ def main():
     phase_device()
     phase_build()
     records = phase_kernels()
-    phase_small_step()
-    launches = phase_slice()
+    phase_small_steps()
+    launches = phase_slices()
+    main_path = launches["exp212_pad_online"]
     pkg = Path(PKG)
-    kernels = [
-        {"name": "warp_bilinear_nchw", "route": "cuda", "source": str(pkg / "csrc/warp.cu"),
-         "replaces": K1_REPLACES, "launches": launches["warp"], **records["warp"]},
-        {"name": "reprojection_error", "route": "cuda",
-         "source": str(pkg / "csrc/reprojection.cu"), "replaces": K2_REPLACES,
-         "launches": launches["reprojection"], **records["reprojection"]},
-    ]
+    kernels = []
+    for key, name, source, replaces in (
+            ("warp", "warp_bilinear_nchw", "csrc/warp.cu", K1_REPLACES),
+            ("reprojection", "reprojection_error", "csrc/reprojection.cu", K2_REPLACES),
+            ("reprojection_grad", "reprojection_error_grad", "csrc/reprojection.cu",
+             K3_REPLACES)):
+        kernels.append({"name": name, "route": "cuda", "source": str(pkg / source),
+                        "replaces": replaces, "launches": main_path[key],
+                        "launches_by_path": {p: c[key] for p, c in launches.items()},
+                        **records[key]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,8 @@ Batch dict contract (reference loader/sequence_segmentation_loader.py:183-250):
   K_{s}, inv_K_{s}                  (N, 4, 4) intrinsics per scale
   lbl                               int labels with ignore = 250
   pseudo_depth                      (N, H, W, 1) normalized disparity
+  onehot_lbl, is_labeled            one-hot labels and a per-sample flag
+                                    (`with_unlabeled_extras`, for mix_use_gt)
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ def make_synthetic_batch(
     num_scales: int = 4,
     n_classes: int = 19,
     seed: int = 0,
+    with_unlabeled_extras: bool = False,
 ) -> Dict[str, np.ndarray]:
     rng = np.random.default_rng(seed)
     batch: Dict[str, np.ndarray] = {}
@@ -61,11 +64,15 @@ def make_synthetic_batch(
     lbl[:, : h // 8] = 250  # some ignore pixels
     batch["lbl"] = lbl
     batch["pseudo_depth"] = rng.uniform(0, 1, (batch_size, h, w, 1)).astype(np.float32)
+    if with_unlabeled_extras:
+        batch["onehot_lbl"] = np.eye(n_classes, dtype=np.float32)[np.clip(lbl, 0, n_classes - 1)]
+        batch["is_labeled"] = np.arange(batch_size) % 2 == 0
     return batch
 
 
 def to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """NHWC numpy batch -> NCHW torch tensors on `device` (labels as int64)."""
+    """NHWC numpy batch -> NCHW torch tensors on `device` (labels as int64;
+    one-hot labels are images too)."""
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))

@@ -108,12 +108,26 @@ def _seg_decoder(sd, prefix, p, s, depth_args):
     sd[f"{prefix}head.{cls}.bias"] = _t(p["classifier"]["bias"])
 
 
+def _pad(sd, prefix, p, s, depth_args):
+    # JAX full_model_interop.py::_convert_pad, inverted
+    for branch in ("depth_dec", "seg_dec"):
+        _depth_decoder(sd, f"{prefix}{branch}.", p[branch], s.get(branch, {}), depth_args)
+    for sa in ("sa_depth", "sa_seg"):
+        _conv(sd, f"{prefix}{sa}.conv.weight", p[sa]["Conv_0"]["kernel"])
+        _conv(sd, f"{prefix}{sa}.attention.weight", p[sa]["Conv_1"]["kernel"])
+    for head in ("seg_final_head", "seg_intermediate_head"):
+        if head in p:
+            _conv(sd, f"{prefix}{head}.0.weight", p[head]["kernel"])
+            sd[f"{prefix}{head}.0.bias"] = _t(p[head]["bias"])
+
+
 def state_dict_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
                         model_cfg: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax (params, batch_stats) of the joint model -> the port's state_dict."""
-    unknown = set(params) - {"encoder", "pose_encoder", "pose", "depth", "segmentation"}
+    unknown = set(params) - {"encoder", "pose_encoder", "pose", "depth", "segmentation",
+                             "mtl_decoder"}
     if unknown:
-        raise not_ported(f"converting JAX submodules {sorted(unknown)}", "exp-210, exp-212")
+        raise not_ported(f"converting JAX submodules {sorted(unknown)}", "exp-210")
     depth_args = dict(model_cfg.get("depth_args") or {})
     sd: Dict[str, torch.Tensor] = {}
     for enc in ("encoder", "pose_encoder"):
@@ -129,4 +143,7 @@ def state_dict_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
     if "segmentation" in params:
         _seg_decoder(sd, "models.segmentation.", params["segmentation"],
                      batch_stats.get("segmentation", {}), depth_args)
+    if "mtl_decoder" in params:
+        _pad(sd, "models.mtl_decoder.", params["mtl_decoder"],
+             batch_stats.get("mtl_decoder", {}), depth_args)
     return sd

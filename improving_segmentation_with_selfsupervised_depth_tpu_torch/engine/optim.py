@@ -5,7 +5,9 @@ Port of what `engine/optim.py::build_optimizer` builds for `name: sgd`:
   [clip_by_global_norm | masked_clip_by_global_norm]
   -> per group: add_decayed_weights(wd) -> trace(momentum) -> -lr * factor(step)
 Groups are the top-level submodules (encoder / pose / depth / segmentation;
-anything else "default"). As in the JAX package, a parameter without a
+anything else "default"); the PAD decoder's branches split between the depth
+group (`depth_dec`, `sa_seg`) and the segmentation group (the rest), as in
+the JAX package's `label_of`. As in the JAX package, a parameter without a
 gradient counts as a zero gradient (weight decay still applies).
 """
 
@@ -22,10 +24,27 @@ _GROUP_LR_KEYS = {"encoder": "backbone_lr", "pose": "pose_lr", "depth": "depth_l
 _FREEZE_KEYS = ("freeze_backbone", "freeze_depth", "freeze_pose", "freeze_segmentation")
 
 
-def label_of(top: str) -> str:
+# PAD branches of the depth task (reference PAD.depth_params: the depth
+# decoder and the attention that feeds the segmentation branch)
+_PAD_DEPTH = {"depth_dec", "sa_seg"}
+
+
+def label_of(top: str, second: Optional[str] = None) -> str:
+    """Group of a parameter under `models.{top}[.{second}]`."""
     if top in ("pose", "pose_encoder"):
         return "pose"
+    if top == "mtl_decoder":
+        return "depth" if second in _PAD_DEPTH else "segmentation"
     return top if top in ("encoder", "depth", "segmentation") else "default"
+
+
+def _labelled_parameters(model: torch.nn.Module):
+    for top, module in model.models.items():
+        if top == "mtl_decoder":
+            for second, sub in module.named_children():
+                yield label_of(top, second), sub.parameters()
+        else:
+            yield label_of(top), module.parameters()
 
 
 def build_lr_factor_fn(sched_cfg: Optional[Dict[str, Any]]) -> Callable[[int], float]:
@@ -40,6 +59,9 @@ def build_lr_factor_fn(sched_cfg: Optional[Dict[str, Any]]) -> Callable[[int], f
         milestones = sorted(cfg["milestones"])
         gamma = cfg.get("gamma", 0.1)
         return lambda step: gamma ** sum(step >= m for m in milestones)
+    if name == "step_lr":
+        step_size, gamma = cfg["step_size"], cfg.get("gamma", 0.1)
+        return lambda step: gamma ** (step // step_size)
     raise not_ported(f"lr_schedule {name}", "trainer I/O")
 
 
@@ -111,12 +133,11 @@ def build_optimizer(training_cfg: Dict[str, Any], model_cfg: Dict[str, Any],
                          "trainer I/O")
     base_lr = ocfg.get("lr", 0.01)
     groups: Dict[str, Dict[str, Any]] = {}
-    for top, module in model.models.items():
-        label = label_of(top)
+    for label, params in _labelled_parameters(model):
         group = groups.setdefault(label, {
             "label": label, "params": [],
             "lr": ocfg.get(_GROUP_LR_KEYS.get(label, ""), base_lr)})
-        group["params"].extend(module.parameters())
+        group["params"].extend(params)
     clip_groups = None
     if training_cfg.get("disable_depth_grad_clip", False):
         clip_groups = {"encoder", "segmentation"}

@@ -1,30 +1,52 @@
-"""The supervised SDE train step: CE + min-reprojection photometric loss.
+"""The train step: supervised SDE, and the mean-teacher DepthMix step.
 
-Port of the supervised branch of the JAX package's
-`engine/train_steps.py::make_train_step` (forward at lines 325-330, CE at
-345-349, update at 418-421): one train-mode forward (BatchNorm running
-statistics update in it), the photometric loss through K1/K2, the CE loss,
-one backward and one optimizer step. Losses come back as 0-dim tensors, so
-the step itself never waits for the device.
+Port of the JAX package's `engine/train_steps.py::make_train_step` for two
+configurations:
+- supervised (the `sde` step): one train-mode forward (BatchNorm running
+  statistics update in it), the photometric loss through K1/K2 (and K3 with
+  `fused_pred_loss`), the CE loss, one backward and one optimizer step;
+- semi-supervised with an EMA teacher and online-depth DepthMix (the `s212`
+  step, JAX :233-435): the teacher's soft pseudo-labels on the unlabeled
+  batch, the labeled forward with its photometric and CE losses, the
+  unlabeled forward with its photometric loss, whose detached per-sample
+  min-max-normalized `disp_0` gives the DepthMix depths, the depthcomp mask,
+  the mixed and strongly augmented images, the mixed forward without pose and
+  its confidence-weighted pseudo-label loss; then one backward, the optimizer
+  step and the EMA update.
+
+Losses come back as 0-dim tensors, so the step itself never waits for the
+device. JAX's random keys become injectable draws (`StepDraws`): what is not
+injected is drawn from the step's `torch.Generator`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from .. import not_ported
 from ..ops import photometric
-from ..ops.losses import cross_entropy2d
+from ..ops.image import color_jitter, gaussian_blur, uniform
+from ..ops.losses import IGNORE_INDEX, cross_entropy2d
+from ..ops.mixing import (
+    depthhist_thresholds,
+    generate_class_mask,
+    generate_depth_mask,
+    generate_depthcomp_mask,
+    mix,
+)
+from ..ops.photometric import key_of
+from .state import ema_model_names, update_ema
 
 _PHOTOMETRIC_DTYPES = {None: None, "bfloat16": torch.bfloat16}
+EMA_ALPHA = 0.99  # the teacher's EMA rate (JAX StepConfig.ema_alpha)
 
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """The fields of the JAX `StepConfig` that the supervised step reads."""
+    """The fields of the JAX `StepConfig` that the ported steps read."""
 
     monodepth_lambda: float = 0.0
     segmentation_lambda: float = 1.0
@@ -36,67 +58,249 @@ class StepConfig:
     no_ssim: bool = False
     avg_reprojection: bool = False
     disable_automasking: bool = False
-    # SSIM/L1 chain compute dtype of the gradient path (bf16 in the sde step)
+    # SSIM/L1 chain compute dtype of the unfused gradient path (bf16 in the
+    # sde step)
     photometric_dtype: Optional[torch.dtype] = None
+    # the per-scale pred error through K2 forward and K3 backward
+    # (training.fused_reprojection)
+    fused_pred_loss: bool = False
+    num_classes: int = 19
+    # semi-supervised (training.unlabeled_segmentation)
+    unlabeled: bool = False
+    consistency_weight: float = 1.0
+    mix_mask: Optional[str] = None
+    unlabeled_color_jitter: bool = False
+    unlabeled_blur: bool = False
+    mix_use_gt: bool = False
+    depthcomp_margin: float = 0.0
+    depthcomp_foreground_threshold: Any = 0.0
+    depthmix_online_depth: bool = False
+    use_ema: bool = False
+    ema_names: Optional[Tuple[str, ...]] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class StepDraws:
+    """Random draws of the semi-supervised branch, for tests that replay
+    another framework's numbers; a field left None is drawn from the step's
+    generator.
+
+    tie_break_noise_u: the unlabeled photometric pass's tie-break draw,
+      (N, F, H, W) standard normal (the labeled pass's is the step's
+      `tie_break_noise`).
+    jitter: (brightness, contrast, saturation, hue) of `color_jitter`.
+    jitter_apply, blur_apply: the U(0, 1) draws that decide whether jitter
+      (> 0.2) and blur (> 0.5) apply.
+    blur_sigma: the blur's sigma.
+    mix_threshold: the depthcomp foreground threshold draw (when it is a
+      range), or the per-sample (N, 1, 1) thresholds of the depth mask.
+    """
+
+    tie_break_noise_u: Optional[torch.Tensor] = None
+    jitter: Optional[Sequence[float]] = None
+    jitter_apply: Optional[float] = None
+    blur_sigma: Optional[float] = None
+    blur_apply: Optional[float] = None
+    mix_threshold: Any = None
+
+
+def _monodepth_loss(cfg: StepConfig, batch, outputs, generator, tie_break_noise):
+    outputs = photometric.generate_images_pred(
+        batch, outputs, scales=cfg.scales, frame_ids=cfg.frame_ids,
+        min_depth=cfg.min_depth, max_depth=cfg.max_depth)
+    losses = photometric.compute_losses(
+        batch, outputs, scales=cfg.scales, frame_ids=cfg.frame_ids,
+        disparity_smoothness=cfg.disparity_smoothness, no_ssim=cfg.no_ssim,
+        avg_reprojection=cfg.avg_reprojection, disable_automasking=cfg.disable_automasking,
+        fused_pred=cfg.fused_pred_loss, pred_dtype=cfg.photometric_dtype,
+        generator=generator, tie_break_noise=tie_break_noise)
+    return cfg.monodepth_lambda * losses["loss"]
+
+
+def _segmentation_loss(cfg: StepConfig, outputs, labels):
+    seg_loss = cross_entropy2d(outputs["semantics"], labels)
+    if "intermediate_semantics" in outputs:
+        seg_loss = (seg_loss + cross_entropy2d(outputs["intermediate_semantics"], labels)) / 2.0
+    return seg_loss * cfg.segmentation_lambda
+
+
+def pseudo_label_loss(cfg: StepConfig, teacher_softmax: torch.Tensor,
+                      student_logits: torch.Tensor):
+    """Confidence-weighted CE on teacher soft pseudo-labels (N, C, H, W).
+
+    Reference train.py:644-651: pixels where the teacher max-prob is 0 are
+    ignored; the batch is weighted by the fraction of pixels with max-prob
+    >= 0.968. Returns (loss, pseudo-label).
+    """
+    max_probs = teacher_softmax.amax(1)
+    pseudo_label = torch.where(max_probs == 0, IGNORE_INDEX, teacher_softmax.argmax(1))
+    unlabeled_weight = (max_probs >= 0.968).float().mean()
+    pixel_weights = unlabeled_weight * torch.ones_like(max_probs)
+    loss = cfg.consistency_weight * cross_entropy2d(student_logits, pseudo_label,
+                                                    pixel_weights=pixel_weights)
+    return loss, pseudo_label
+
+
+def generate_mix_mask(cfg: StepConfig, argmax_u_w: torch.Tensor, depths,
+                      draws: StepDraws, generator=None) -> torch.Tensor:
+    """The mix mask (reference train.py:572-642); `depths` (N, H, W) or None."""
+    n, h, w = argmax_u_w.shape
+    if cfg.mix_mask == "depthcomp":
+        return generate_depthcomp_mask(depths, cfg.depthcomp_margin,
+                                       cfg.depthcomp_foreground_threshold,
+                                       threshold_draw=draws.mix_threshold,
+                                       generator=generator)
+    if cfg.mix_mask == "depth":
+        thr = draws.mix_threshold
+        if thr is None:
+            thr = uniform(generator, depths.device, (n, 1, 1), lo=0.1, hi=0.4)
+        return generate_depth_mask(depths, torch.as_tensor(thr, device=depths.device))
+    if cfg.mix_mask == "class":
+        return generate_class_mask()
+    if cfg.mix_mask == "depthhist":
+        return depthhist_thresholds()
+    if cfg.mix_mask is None:
+        return torch.ones((n, h, w), device=argmax_u_w.device)
+    raise NotImplementedError(f"Unknown mix_mask {cfg.mix_mask}")
+
+
+def strong_transform(cfg: StepConfig, mask, data, draws: StepDraws, generator=None):
+    """mix -> color jitter -> gaussian blur (reference train.py:654-659)."""
+    data, _ = mix(mask, data)
+    if cfg.unlabeled_color_jitter:
+        apply = draws.jitter_apply
+        if apply is None:
+            apply = uniform(generator, data.device)
+        data = color_jitter(data, s=0.25, factors=draws.jitter, apply_draw=apply,
+                            generator=generator)
+    if cfg.unlabeled_blur:
+        apply = draws.blur_apply
+        if apply is None:
+            apply = uniform(generator, data.device)
+        data = gaussian_blur(data, sigma=draws.blur_sigma, apply_draw=apply,
+                             generator=generator)
+    return data
 
 
 def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor],
                cfg: StepConfig, generator: Optional[torch.Generator] = None,
-               tie_break_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
-    """One supervised step on `batch` (NCHW); updates `model` in place.
+               tie_break_noise: Optional[torch.Tensor] = None, *,
+               unlabeled_batch: Optional[Dict[str, torch.Tensor]] = None,
+               teacher: Optional[torch.nn.Module] = None,
+               draws: StepDraws = StepDraws()) -> Dict[str, torch.Tensor]:
+    """One step on `batch` (NCHW); updates `model` (and `teacher`) in place.
 
-    The photometric tie-break noise comes from `generator`, or is injected as
-    `tie_break_noise` (see ops/photometric.py::compute_losses).
+    The labeled photometric pass's tie-break noise is `tie_break_noise` or
+    is drawn from `generator` (see ops/photometric.py::compute_losses); the
+    semi-supervised branch, on with `cfg.unlabeled` and `cfg.use_ema`, needs
+    `unlabeled_batch` and `teacher` and takes its draws from `draws`.
     """
+    semi = cfg.unlabeled and cfg.use_ema
+    if cfg.unlabeled and not cfg.use_ema:
+        raise not_ported("unlabeled_segmentation without the EMA teacher", "exp-210")
+    if semi and (unlabeled_batch is None or teacher is None):
+        raise ValueError("the semi-supervised step needs unlabeled_batch and teacher")
     model.train()
-    outputs = model(batch)
+
+    # teacher forward: train-mode BatchNorm on batch statistics, like the
+    # reference teacher (train.py:444-445); no gradient
+    teacher_softmax = argmax_u_w = None
+    if semi:
+        teacher.train()
+        with torch.no_grad():
+            t_out = teacher(unlabeled_batch, use_pose=False)
+            teacher_softmax = torch.softmax(t_out["semantics"].float(), dim=1)
+            if cfg.mix_use_gt:
+                is_lab = unlabeled_batch["is_labeled"].reshape(-1, 1, 1, 1).bool()
+                teacher_softmax = torch.where(is_lab, unlabeled_batch["onehot_lbl"],
+                                              teacher_softmax)
+            argmax_u_w = teacher_softmax.argmax(1)
+
     zero = torch.zeros((), device=batch["lbl"].device)
+    outputs = model(batch)
     mono_loss = zero
     if cfg.monodepth_lambda > 0:
-        outputs = photometric.generate_images_pred(
-            batch, outputs, scales=cfg.scales, frame_ids=cfg.frame_ids,
-            min_depth=cfg.min_depth, max_depth=cfg.max_depth)
-        losses = photometric.compute_losses(
-            batch, outputs, scales=cfg.scales, frame_ids=cfg.frame_ids,
-            disparity_smoothness=cfg.disparity_smoothness, no_ssim=cfg.no_ssim,
-            avg_reprojection=cfg.avg_reprojection,
-            disable_automasking=cfg.disable_automasking, pred_dtype=cfg.photometric_dtype,
-            generator=generator, tie_break_noise=tie_break_noise)
-        mono_loss = cfg.monodepth_lambda * losses["loss"]
+        mono_loss = _monodepth_loss(cfg, batch, outputs, generator, tie_break_noise)
     seg_loss = zero
     if cfg.segmentation_lambda > 0:
-        seg_loss = cross_entropy2d(outputs["semantics"], batch["lbl"]) * cfg.segmentation_lambda
-    total = seg_loss + mono_loss
+        seg_loss = _segmentation_loss(cfg, outputs, batch["lbl"])
+    seg_total, mono_total = seg_loss, mono_loss
+
+    metrics = {}
+    if semi:
+        unlabeled_imgs = unlabeled_batch[key_of("color_aug", 0, 0)]
+        mono_loss_u = zero
+        if cfg.depthmix_online_depth:
+            out_1 = model(unlabeled_batch)
+            if cfg.monodepth_lambda > 0:
+                mono_loss_u = _monodepth_loss(cfg, unlabeled_batch, out_1, generator,
+                                              draws.tie_break_noise_u)
+                d = out_1["disp_0"].detach()
+                dmin = d.amin((1, 2, 3), keepdim=True)
+                dmax = d.amax((1, 2, 3), keepdim=True)
+                depths = ((d - dmin) / (dmax - dmin + 1e-12))[:, 0]
+            else:
+                depths = unlabeled_batch["pseudo_depth"][:, 0]
+        elif "pseudo_depth" in unlabeled_batch:
+            depths = unlabeled_batch["pseudo_depth"][:, 0]
+        else:
+            depths = None
+
+        with torch.no_grad():
+            mix_mask = generate_mix_mask(cfg, argmax_u_w, depths, draws, generator)
+            mixed_imgs = strong_transform(cfg, mix_mask, unlabeled_imgs, draws, generator)
+            mixed_softmax, _ = mix(mix_mask, teacher_softmax)
+        mixed_batch = dict(unlabeled_batch)
+        mixed_batch[key_of("color_aug", 0, 0)] = mixed_imgs
+        out_s = model(mixed_batch, use_pose=False)
+        l_2, _ = pseudo_label_loss(cfg, mixed_softmax, out_s["semantics"])
+
+        seg_total = seg_total + l_2
+        mono_total = mono_total + mono_loss_u
+        metrics["unlabeled_loss"] = l_2.detach()
+    total = seg_total + mono_total
 
     optimizer.zero_grad()
     total.backward()
+    step = optimizer.step_count  # steps taken before this one (the JAX state.step)
     optimizer.step()
-    return {"segmentation_loss": seg_loss.detach(), "mono_loss": mono_loss.detach(),
-            "total_loss": total.detach()}
+    if cfg.use_ema:
+        update_ema(teacher, model, step, EMA_ALPHA, cfg.ema_names)
+    metrics.update({"segmentation_loss": seg_loss.detach(), "mono_loss": mono_loss.detach(),
+                    "segmentation_total_loss": seg_total.detach(),
+                    "mono_total_loss": mono_total.detach(), "total_loss": total.detach()})
+    return metrics
 
 
 def step_config_from_cfg(cfg: Dict[str, Any]) -> StepConfig:
     """StepConfig from the experiment config (the JAX `step_config_from_cfg`
-    schema); raises for what the supervised slice does not run."""
+    schema); raises for what the port does not run yet."""
     t = cfg.get("training", {})
+    m = cfg.get("model", {})
     mono = dict(cfg.get("monodepth_options", {}))
     mono.update(t.get("monodepth_loss") or {})
-    if t.get("unlabeled_segmentation"):
-        raise not_ported("training.unlabeled_segmentation (mean teacher, DepthMix)",
-                         "exp-210")
+    u = t.get("unlabeled_segmentation") or {}
     if t.get("amp", False):
         raise not_ported("training.amp (bf16 model)", "amp/bf16 model")
-    if t.get("fused_reprojection", False):
-        raise not_ported("training.fused_reprojection (kernel K3)", "K3")
     for key, item in (("pseudo_depth_lambda", "exp-210"), ("feat_dist_lambda", "exp-210")):
         if t.get(key, 0.0):
             raise not_ported(f"training.{key}", item)
+    if t.get("fuse_unlabeled_forward", False):
+        raise not_ported("training.fuse_unlabeled_forward", "exp-212 options")
+    if u.get("debug_images", u.get("debug_image", False)):
+        raise not_ported("unlabeled_segmentation.debug_images", "exp-212 options")
+    if u.get("backward_first_pseudo_label", False):
+        raise not_ported("unlabeled_segmentation.backward_first_pseudo_label", "exp-210")
+    if u and not u.get("depthmix_online_depth", False):
+        raise not_ported("offline pseudo-depth DepthMix (depthmix_online_depth: false)",
+                         "exp-210")
     if t.get("pred_layout", "pack") != "pack" or t.get("remat_photometric", False):
         raise not_ported("training.pred_layout other than 'pack' / remat_photometric",
                          "amp/bf16 model")
     dtype_name = t.get("photometric_dtype")
     if dtype_name not in _PHOTOMETRIC_DTYPES:
         raise ValueError(f"training.photometric_dtype {dtype_name!r}: bfloat16 or null")
+    fg_thr = u.get("depthcomp_foreground_threshold", 0.0)
     return StepConfig(
         monodepth_lambda=t.get("monodepth_lambda", 0.0),
         segmentation_lambda=t.get("segmentation_lambda", 1.0),
@@ -109,4 +313,18 @@ def step_config_from_cfg(cfg: Dict[str, Any]) -> StepConfig:
         avg_reprojection=mono.get("avg_reprojection", False),
         disable_automasking=mono.get("disable_automasking", False),
         photometric_dtype=_PHOTOMETRIC_DTYPES[dtype_name],
+        fused_pred_loss=t.get("fused_reprojection", False),
+        num_classes=cfg.get("data", {}).get("n_classes", 19),
+        unlabeled=bool(u),
+        consistency_weight=u.get("consistency_weight", 1.0),
+        mix_mask=u.get("mix_mask"),
+        unlabeled_color_jitter=bool(u.get("color_jitter", False)),
+        unlabeled_blur=bool(u.get("blur", False)),
+        mix_use_gt=u.get("mix_use_gt", False),
+        depthcomp_margin=u.get("depthcomp_margin", 0.0),
+        depthcomp_foreground_threshold=(tuple(fg_thr) if isinstance(fg_thr, (list, tuple))
+                                        else fg_thr),
+        depthmix_online_depth=u.get("depthmix_online_depth", False),
+        use_ema=bool(u),
+        ema_names=ema_model_names(t, m),
     )

@@ -6,15 +6,17 @@ models/joint_segmentation_depth.py:10-183). The submodules live in the
 the reference checkpoint's (engine/full_model_interop.py:10-21):
 
   models.encoder        ResNetEncoder backbone
-  models.depth          DepthDecoder (monodepth on)
+  models.depth          DepthDecoder (monodepth on, not mtl_pad)
   models.segmentation   JointSegDepthDecoder
+  models.mtl_decoder    PAD (segmentation_name: mtl_pad)
   models.pose_encoder   ResNetEncoder(depth 18, num_input_images=2)
   models.pose           PoseDecoder
 
 Forward takes the batch dict (see ops/photometric.py) and returns "bottleneck",
-"disp_{s}", "semantics" (N, classes, H, W), "axisangle_0_{f}",
-"translation_0_{f}" (N, 2, 1, 3) and "cam_T_cam_0_{f}" (N, 4, 4). Train or
-eval mode is the module's own (`model.train()` / `model.eval()`).
+"disp_{s}", "semantics" (N, classes, H, W), with PAD "intermediate_semantics",
+and, unless `use_pose=False`, "axisangle_0_{f}", "translation_0_{f}"
+(N, 2, 1, 3) and "cam_T_cam_0_{f}" (N, 4, 4). Train or eval mode is the
+module's own (`model.train()` / `model.eval()`).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from .depth_decoder import DepthDecoder
 from .layers import init_weights
 from .pose_decoder import PoseDecoder
 from .resnet import ResNetEncoder, num_ch_enc
-from .seg_decoder import JointSegDepthDecoder
+from .seg_decoder import PAD, JointSegDepthDecoder
 
 _BACKBONE_DEPTH = {"resnet18": 18, "resnet34": 34, "resnet50": 50, "resnet101": 101,
                    "resnet152": 152}
@@ -53,11 +55,16 @@ class JointSegmentationDepth(nn.Module):
         depth_args = dict(depth_args or {})
         models = {"encoder": ResNetEncoder(
             backbone_depth, replace_stride_with_dilation=replace_stride_with_dilation)}
-        if not disable_monodepth:
-            models["depth"] = DepthDecoder(ch_enc, scales=tuple(range(num_scales)), **depth_args)
-        if segmentation_name is not None:
-            models["segmentation"] = JointSegDepthDecoder(
-                ch_enc, num_classes, depth_args=depth_args, **dict(segmentation_args or {}))
+        seg_args = dict(segmentation_args or {})
+        if segmentation_name == "mtl_pad":
+            models["mtl_decoder"] = PAD(ch_enc, num_classes, depth_args=depth_args, **seg_args)
+        else:
+            if not disable_monodepth:
+                models["depth"] = DepthDecoder(ch_enc, scales=tuple(range(num_scales)),
+                                               **depth_args)
+            if segmentation_name is not None:
+                models["segmentation"] = JointSegDepthDecoder(
+                    ch_enc, num_classes, depth_args=depth_args, **seg_args)
         if self.use_pose_net:
             models["pose_encoder"] = ResNetEncoder(18, num_input_images=2)
             models["pose"] = PoseDecoder(num_ch_enc(18), 1, 2)
@@ -95,6 +102,8 @@ class JointSegmentationDepth(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         features = self.models["encoder"](inputs[key_of("color_aug", 0, 0)])
         outputs = {"bottleneck": features[-1]}
+        if "mtl_decoder" in self.models:
+            outputs.update(self.models["mtl_decoder"](features))
         if "depth" in self.models:
             outputs.update(self.models["depth"](features))
         if "segmentation" in self.models:
@@ -107,8 +116,6 @@ class JointSegmentationDepth(nn.Module):
 def build_model(model_cfg: Dict[str, Any], n_classes: int) -> JointSegmentationDepth:
     """Config-dict factory with the JAX package's `build_model` schema."""
     m = dict(model_cfg)
-    if m.get("segmentation_name") == "mtl_pad":
-        raise not_ported("model.segmentation_name: mtl_pad (PAD decoder)", "exp-212")
     if m.get("enable_imnet_encoder", False):
         raise not_ported("model.enable_imnet_encoder (feature-distance loss)", "exp-210")
     if m.get("pose_model_input", "pairs") != "pairs":

@@ -92,10 +92,25 @@ class ASPP(nn.Module):
         return self.project(torch.cat(branches, dim=1))
 
 
+class SelfAttention(nn.Module):
+    """Conv-gated local attention, conv3x3(x) * sigmoid(gate3x3(x)), both
+    bias-free with zero padding; the gate starts at zero (reference
+    models/model_parts.py:35-46, JAX models/layers.py:363-376)."""
+
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.conv = nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False)
+        self.attention = nn.Conv2d(in_ch, out_ch, 3, padding=1, bias=False)
+
+    def forward(self, x):
+        return self.conv(x) * torch.sigmoid(self.attention(x))
+
+
 def init_weights(module: nn.Module) -> None:
     """The JAX package's initialisation: every conv kernel from a truncated
     normal with variance 2 / fan_out (Flax variance_scaling(2.0, "fan_out",
-    "truncated_normal")), conv biases zero, BN scale 1 and bias 0."""
+    "truncated_normal")), conv biases zero, BN scale 1 and bias 0, and the
+    SelfAttention gates zero."""
     for m in module.modules():
         if isinstance(m, nn.Conv2d):
             fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
@@ -107,3 +122,6 @@ def init_weights(module: nn.Module) -> None:
         elif isinstance(m, nn.BatchNorm2d):
             nn.init.ones_(m.weight)
             nn.init.zeros_(m.bias)
+    for m in module.modules():
+        if isinstance(m, SelfAttention):
+            nn.init.zeros_(m.attention.weight)

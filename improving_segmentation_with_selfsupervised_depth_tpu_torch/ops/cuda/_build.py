@@ -36,8 +36,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # img, ix, iy, out, dfx, dfy, n, c, h, w, reps, hg, wg, stream
     "warp_bilinear_nchw_f32": (_P,) * 6 + (_I,) * 7 + (_P,),
-    # pred, target, out, n, c, h, w, c1, c2, stream
-    "reprojection_error_f32": (_P,) * 3 + (_I,) * 4 + (_F, _F, _P),
+    # pred, target, out, m, c, h, w, reps, c1, c2, stream
+    "reprojection_error_f32": (_P,) * 3 + (_I,) * 5 + (_F, _F, _P),
+    # pred, target, g, dpred, m, c, h, w, reps, c1, c2, kssim, kl1, stream
+    "reprojection_error_grad_f32": (_P,) * 4 + (_I,) * 5 + (_F,) * 4 + (_P,),
 }
 
 

@@ -8,6 +8,15 @@ each source frame is warped at all scales with one K1 launch. The error is
 automasking (identity errors through K2, plus 1e-5 tie-break noise), plus
 edge-aware smoothness weighted by `disparity_smoothness / 2**scale`.
 
+With `fused_pred` the per-scale pred error is the differentiable fused error
+(`ops/cuda/reprojection.py::ReprojectionError`: K2 forward, K3 backward), one
+launch of each per source frame for all scales, in f32.
+
+Subgradients at ties are JAX's: |u| has slope +1 at 0, the clip 0.5 at an
+exact bound (`ops/image.py`), and the min over sources splits its gradient
+evenly between equal values (`amin`; `min(dim).values` would give it all to
+one).
+
 Batch keys: color_{f}_{s} (N, 3, H, W), K_{s} / inv_K_{s} (N, 4, 4).
 Output keys read: disp_{s} (N, 1, H/2^s, W/2^s), cam_T_cam_0_{f} (N, 4, 4).
 """
@@ -18,9 +27,9 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-from .cuda.reprojection import reprojection_error
+from .cuda.reprojection import reprojection_error, reprojection_error_diff
 from .geometry import backproject_depth, disp_to_depth, project_3d
-from .image import smoothness_loss, ssim_nchw
+from .image import abs_jax, smoothness_loss, ssim_nchw
 from .resample import grid_sample_pack_nchw
 from .resize import resize_bilinear
 
@@ -37,7 +46,7 @@ def reprojection_loss_nchw(pred: torch.Tensor, target: torch.Tensor, no_ssim: bo
     if dtype is not None:
         pred = pred.to(dtype)
         target = target.to(dtype)
-    l1 = (target - pred).abs().mean(1, keepdim=True)
+    l1 = abs_jax(target - pred).mean(1, keepdim=True)
     if no_ssim:
         return l1.float()
     ssim_term = ssim_nchw(pred, target).mean(1, keepdim=True)
@@ -50,7 +59,9 @@ def generate_images_pred(inputs: Dict[str, torch.Tensor], outputs: Dict[str, tor
     """Warp the source frames into the target view at every scale.
 
     Returns a new dict with `depth_0_{s}` and `color_pred_{f}_{s}`
-    (N, 3, H, W) added. Reference loss/monodepth_loss.py:64-102.
+    (N, 3, H, W) added, and `color_pred_pack_{f}` (N, S, 3, H, W), the K1
+    output whose views the `color_pred_{f}_{s}` are. Reference
+    loss/monodepth_loss.py:64-102.
     """
     out = dict(outputs)
     full_h, full_w = inputs[key_of("color", 0, 0)].shape[2:]
@@ -67,6 +78,7 @@ def generate_images_pred(inputs: Dict[str, torch.Tensor], outputs: Dict[str, tor
     for frame_id in frame_ids[1:]:
         grids = torch.stack(frame_grids[frame_id], dim=1)  # (N, S, H, W, 2)
         warped = grid_sample_pack_nchw(inputs[key_of("color", frame_id, 0)].detach(), grids)
+        out[key_of("color_pred_pack", frame_id)] = warped
         for si, scale in enumerate(scales):
             out[key_of("color_pred", frame_id, scale)] = warped[:, si]
     return out
@@ -76,6 +88,7 @@ def compute_losses(inputs: Dict[str, torch.Tensor], outputs: Dict[str, torch.Ten
                    scales: Sequence[int], frame_ids: Sequence[Any],
                    disparity_smoothness: float, no_ssim: bool = False,
                    avg_reprojection: bool = False, disable_automasking: bool = False,
+                   fused_pred: bool = False,
                    pred_dtype: Optional[torch.dtype] = None,
                    generator: Optional[torch.Generator] = None,
                    tie_break_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
@@ -86,6 +99,10 @@ def compute_losses(inputs: Dict[str, torch.Tensor], outputs: Dict[str, torch.Ten
     standard-normal draw shared across scales (as in the JAX package), scaled
     by 1e-5: `tie_break_noise` injects the draw, shaped like the identity
     errors (N, F, H, W); otherwise it is drawn from `generator`.
+
+    `fused_pred` (with SSIM on) takes the per-scale pred error through K2/K3
+    on the packed warps `color_pred_pack_{f}`, in f32: like the JAX fused
+    kernel it ignores `pred_dtype`, which applies to the unfused chain only.
     """
     losses: Dict[str, torch.Tensor] = {}
     total_loss = 0.0
@@ -106,18 +123,29 @@ def compute_losses(inputs: Dict[str, torch.Tensor], outputs: Dict[str, torch.Ten
                                           device=identity_losses.device)
         identity_losses = identity_losses + tie_break_noise * 1e-5
 
-    for scale in scales:
+    fused = {}
+    if fused_pred and not no_ssim:
+        for f in frame_ids[1:]:
+            pack = outputs[key_of("color_pred_pack", f)]  # (N, S, 3, H, W)
+            n, s = pack.shape[:2]
+            err = reprojection_error_diff(pack.reshape(n * s, *pack.shape[2:]).float(),
+                                          target.float(), reps=s)
+            fused[f] = err.reshape(n, s, *err.shape[2:])
+
+    def pred_loss(f, si, scale):
+        if fused:
+            return fused[f][:, si:si + 1]
+        return reprojection_loss_nchw(outputs[key_of("color_pred", f, scale)], target,
+                                      no_ssim, dtype=pred_dtype)
+
+    for si, scale in enumerate(scales):
         disp = outputs[key_of("disp", scale)]
         color = inputs[key_of("color", 0, scale)]
-        reproj = torch.cat([
-            reprojection_loss_nchw(outputs[key_of("color_pred", f, scale)], target, no_ssim,
-                                   dtype=pred_dtype)
-            for f in frame_ids[1:]
-        ], dim=1)
+        reproj = torch.cat([pred_loss(f, si, scale) for f in frame_ids[1:]], dim=1)
         if avg_reprojection:
             reproj = reproj.mean(1, keepdim=True)
         combined = reproj if disable_automasking else torch.cat([identity_losses, reproj], 1)
-        to_optimise = combined[:, 0] if combined.shape[1] == 1 else combined.min(1).values
+        to_optimise = combined[:, 0] if combined.shape[1] == 1 else combined.amin(1)
         loss = to_optimise.mean()
 
         mean_disp = disp.mean((2, 3), keepdim=True)

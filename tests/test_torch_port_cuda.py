@@ -7,8 +7,10 @@ is not installed (the repository's conftest imports JAX, hence --noconftest):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
 Tolerance 1e-5: both sides are f32; the warp picks identical corners from
-identical coordinates and the reprojection kernel sums its windows in the
-plain version's order without FMA contraction.
+identical coordinates and the reprojection kernels sum their windows in the
+plain versions' order without FMA contraction. K3's is 1e-5 of the largest
+gradient value: flat windows amplify a last-bit difference of a variance term
+by up to 1/C2^2 in its coefficients.
 """
 
 import pytest
@@ -17,6 +19,9 @@ import torch
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops.cuda import warp
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops.cuda.reprojection import (
     reprojection_error,
+    reprojection_error_diff,
+    reprojection_error_grad,
+    reprojection_error_grad_plain,
     reprojection_error_plain,
 )
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops.resample import (
@@ -88,6 +93,49 @@ def test_reprojection_kernel_matches_plain(cuda, shape):
     assert float((got - ref).abs().max()) <= 1e-5
 
 
+def _reprojection_inputs(n, reps, h, w, device, seed):
+    """pred (N*reps,3,H,W) with a flat block and a block equal to the target,
+    target (N,3,H,W), g (N*reps,1,H,W)."""
+    gen = torch.Generator().manual_seed(seed)
+    pred = torch.rand((n * reps, 3, h, w), generator=gen)
+    target = torch.rand((n, 3, h, w), generator=gen)
+    pred[..., : h // 2, : w // 2] = 0.25
+    target[..., : h // 2, : w // 3] = 0.5
+    pred[..., h // 2:, w // 2:] = target.repeat_interleave(reps, 0)[..., h // 2:, w // 2:]
+    g = torch.randn((n * reps, 1, h, w), generator=gen)
+    return pred.to(device), target.to(device), g.to(device)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 64, 96), (2, 1, 37, 61), (1, 2, 13, 19), (1, 1, 2, 2)])
+def test_reprojection_kernels_with_reps_match_plain(cuda, shape):
+    n, reps, h, w = shape
+    pred, target, g = _reprojection_inputs(n, reps, h, w, cuda, seed=sum(shape))
+    before = (reprojection_error.launches, reprojection_error_grad.launches)
+    got = reprojection_error(pred, target, reps)
+    dgot = reprojection_error_grad(pred, target, g, reps)
+    ref = reprojection_error_plain(pred, target, reps)
+    dref = reprojection_error_grad_plain(pred, target, g, reps)
+    torch.cuda.synchronize()
+    assert (reprojection_error.launches, reprojection_error_grad.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got.shape == (n * reps, 1, h, w) and dgot.shape == pred.shape
+    assert float((got - ref).abs().max()) <= 1e-5
+    assert float((dgot - dref).abs().max()) <= 1e-5 * float(dref.abs().max())
+
+
+def test_fused_function_runs_k2_forward_and_k3_backward(cuda):
+    pred, target, g = _reprojection_inputs(2, 2, 33, 47, cuda, seed=5)
+    leaf = pred.clone().requires_grad_()
+    before = (reprojection_error.launches, reprojection_error_grad.launches)
+    out = reprojection_error_diff(leaf, target, 2)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert (reprojection_error.launches, reprojection_error_grad.launches) == (
+        before[0] + 1, before[1] + 1)
+    dref = reprojection_error_grad_plain(pred, target, g, 2)
+    assert float((leaf.grad - dref).abs().max()) <= 1e-5 * float(dref.abs().max())
+
+
 def test_kernels_reject_non_contiguous_input(cuda):
     img = torch.rand((2, 3, 8, 8), device=cuda)
     ix = torch.rand((2, 8, 8), device=cuda)
@@ -95,3 +143,6 @@ def test_kernels_reject_non_contiguous_input(cuda):
         warp.warp_bilinear_nchw(img.transpose(2, 3), ix, ix, reps=1)
     with pytest.raises(ValueError):
         reprojection_error(img.transpose(2, 3), img)
+    g = torch.rand((2, 1, 8, 16), device=cuda)[..., ::2]  # (2, 1, 8, 8), strided
+    with pytest.raises(ValueError):
+        reprojection_error_grad(img, img, g)

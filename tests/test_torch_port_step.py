@@ -127,12 +127,12 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
 
 
-def _tiny_train_cfg():
+def _tiny_train_cfg(name="sde_supervised_synthetic.yml"):
     import yaml
 
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "improving_segmentation_with_selfsupervised_depth_tpu_torch",
-                        "configs", "sde_supervised_synthetic.yml")
+                        "configs", name)
     with open(path) as fp:
         cfg = yaml.safe_load(fp)
     cfg["model"].update(backbone_name="resnet18",
@@ -157,14 +157,36 @@ def test_train_cli_runs_the_packaged_config_shrunk(tmp_path, caplog):
     assert len(iters) == 2 and iters[-1].startswith("Iter [2/2]")
 
 
+def test_train_main_runs_the_exp212_config_shrunk():
+    """The packaged exp-212 config (PAD, EMA teacher, online DepthMix, fused
+    K2/K3 error) through train_main on the CPU, shrunk: the plain versions run
+    and no kernel is launched."""
+    from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine.trainer import (
+        train_main,
+    )
+    from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops.cuda import reprojection
+
+    cfg = _tiny_train_cfg("exp212_pad_online_synthetic.yml")
+    assert cfg["training"]["fused_reprojection"] and cfg["model"]["segmentation_name"] == "mtl_pad"
+    launches = reprojection.reprojection_error_grad.launches
+    records = train_main(cfg, device="cpu")
+    assert len(records) == 2 and reprojection.reprojection_error_grad.launches == launches
+    for r in records:
+        assert all(np.isfinite(v) for v in r.values()) and r["unlabeled_loss"] > 0
+    assert records[0]["total_loss"] != records[1]["total_loss"]
+
+
 @pytest.mark.parametrize("section,key,value", [
     ("training", "amp", True),
-    ("training", "fused_reprojection", True),
+    ("training", "pseudo_depth_lambda", 1.0),
     ("training", "unlabeled_segmentation", {"mix_mask": "depthcomp"}),
+    ("training", "unlabeled_segmentation", {"mix_mask": "depthcomp", "depthmix_online_depth": True,
+                                            "backward_first_pseudo_label": True}),
+    ("training", "fuse_unlabeled_forward", True),
     ("training", "val_interval", {"0": 100}),
     ("training", "save_model", True),
     ("data", "dataset", "cityscapes"),
-    ("model", "segmentation_name", "mtl_pad"),
+    ("model", "enable_imnet_encoder", True),
 ])
 def test_what_the_slice_does_not_run_raises(section, key, value):
     from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine.trainer import (

@@ -4,12 +4,14 @@
 
 Phases, each reported on its own lines:
   1. device: the card, its power limit, the torch/CUDA versions, TF32 flags;
-  2. build: compiles the port's CUDA kernels (csrc/*.cu) with nvcc;
+  2. build: compiles the port's CUDA kernels (csrc/*.cu) with nvcc and
+     prints each kernel's registers, spills and SASS instruction counts;
   3. kernels: each kernel (K1 warp, K2 fused SSIM+L1 error, K3 its
      gradient) against its plain PyTorch version on the card, at the
-     main-path shapes and at odd shapes, with times of both, of one PyTorch
-     reference call where there is one, and the least time the card could
-     take (bytes over its memory rate, or operations over its f32 rate);
+     main-path shapes, at odd shapes and at the edges of K2/K3's tiles, with
+     times of both, of one PyTorch reference call where there is one (each
+     the median of one-call CUDA-event timings), and the least time the card
+     could take (bytes over its memory rate, or operations over its f32 rate);
   4. small steps: one small train step on the card against the same step on
      the CPU, for the supervised SDE step and for the exp-212 step; a second
      exp-212 step on each device checks the EMA update at alpha 0.5;
@@ -28,6 +30,7 @@ import copy
 import importlib.util
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -70,14 +73,15 @@ STEP_RTOL = 1e-3   # small train steps, card vs CPU: op-order rounding only
 # cores (the kernels do f32 arithmetic on CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# f32 operations per (pixel, channel), counted from the kernels' arithmetic:
-# K1 ~17 per channel plus ~10 per grid pixel for the corner weights; K2 72
-# for the five 3x3 window sums plus ~33 for SSIM, clip and L1; K3 ~127 per
-# center (window sums, statistics, clip subgradient, five coefficients) plus
-# ~58 per output (five 3x3 box sums, the combination, fold and L1 term)
+# f32 operations per (pixel, channel), counted from the kernels' arithmetic
+# (a division counts as one): K1 ~17 per channel plus ~10 per grid pixel for
+# the corner weights; K2 3 products and 40 adds for the five 3x3 window sums
+# plus ~33 for SSIM, clip and L1; K3 ~90 per center (window sums, statistics,
+# clip subgradient, five coefficients) plus ~53 per output (five 3x3 box
+# sums, the combination and L1 term)
 K1_OPS_PER_CHANNEL, K1_OPS_PER_PIXEL = 17, 10
-K2_OPS = 105
-K3_OPS = 185
+K2_OPS = 76
+K3_OPS = 143
 
 
 def _run(cmd):
@@ -111,6 +115,30 @@ def phase_device():
     return smi
 
 
+def sass_summary(so):
+    """Per kernel of the library `so`, from `cuobjdump -sass`: its static
+    SASS instruction count (NOPs left out), the longest loop (a backward
+    branch: the instructions from its target to it) and the IEEE divisions'
+    reciprocals (MUFU.RCP) and range checks (FCHK)."""
+    cuobjdump = Path(_build._find_nvcc()).with_name("cuobjdump")
+    text = _run([str(cuobjdump), "-sass", str(so)])
+    summary = {}
+    for block in text.split("Function : ")[1:]:
+        name = block.split(None, 1)[0]
+        ops, loop = [], 0
+        for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);",
+                             block):
+            a, op = int(m.group(1), 16), m.group(2)
+            ops.append(op)
+            target = re.search(r"BRA\s+(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)", m.group(0))
+            if op.startswith("BRA") and target and int(target.group(1), 16) < a:
+                loop = max(loop, (a - int(target.group(1), 16)) // 16 + 1)
+        summary[name] = {"instructions": sum(op != "NOP" for op in ops), "longest_loop": loop,
+                         "mufu_rcp": sum(op.startswith("MUFU.RCP") for op in ops),
+                         "fchk": sum(op.startswith("FCHK") for op in ops)}
+    return summary
+
+
 def phase_build():
     t0 = time.perf_counter()
     _build.load_library()
@@ -122,6 +150,8 @@ def phase_build():
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"[build] ptxas: {line.strip()}")
+    for name, counts in sass_summary(so).items():
+        print(f"[build] sass {name}: {json.dumps(counts)}")
     return secs
 
 
@@ -220,9 +250,14 @@ def phase_kernels():
 
     # K2 and K3: the per-scale pred error of one exp-212 source frame, its 4
     # scales against one target (reps 4, timed); the identity errors of sde
-    # (batch 8) and exp-212 (batch 4) with reps 1; odd shapes with reps 1 and 2
+    # (batch 8) and exp-212 (batch 4, K2 timed) with reps 1; odd shapes with
+    # reps 1 and 2; the strips' edges (H not a multiple of the row tile, W
+    # odd and not a multiple of the strip, H and W of 2 and 3, where the
+    # folds of rows 0 and H+1 meet); more than 65,535 planes (21,846 x 3)
     for i, (n, reps, h, w) in enumerate(((4, 4, 512, 512), (8, 1, 512, 512), (4, 1, 512, 512),
-                                         (2, 1, 37, 61), (2, 2, 37, 61))):
+                                         (2, 1, 37, 61), (2, 2, 37, 61), (1, 4, 50, 97),
+                                         (2, 1, 2, 3), (2, 1, 3, 2), (1, 2, 3, 3),
+                                         (21846, 1, 2, 2))):
         pred, target, g = _reprojection_inputs(n, reps, h, w, seed=7 + h + reps)
         got = reprojection.reprojection_error(pred, target, reps)
         ref = reprojection.reprojection_error_plain(pred, target, reps)
@@ -247,6 +282,16 @@ def phase_kernels():
                 records["reprojection"]["max_abs_err"], err)
             records["reprojection_grad"]["max_abs_err"] = max(
                 records["reprojection_grad"]["max_abs_err"], derr)
+            if (n, reps, h, w) == (4, 1, 512, 512):  # the exp-212 identity error
+                ms = _time_ms(lambda: reprojection.reprojection_error(pred, target, reps))
+                plain_ms = _time_ms(
+                    lambda: reprojection.reprojection_error_plain(pred, target, reps))
+                bound_ms, bound_by = _bound(f32 * (2 * n * 3 * h * w + n * h * w),
+                                            n * 3 * h * w * K2_OPS)
+                print(f"[kernels] K2 reprojection identity shape {shape}: kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                records["reprojection"].update(ms_identity=ms, plain_ms_identity=plain_ms,
+                                               bound_ms_identity=bound_ms)
             continue
         m, px = n * reps, h * w
         ms = _time_ms(lambda: reprojection.reprojection_error(pred, target, reps))

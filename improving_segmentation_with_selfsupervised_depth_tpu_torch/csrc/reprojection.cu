@@ -18,84 +18,255 @@
 // one contiguous (N*S, C, H, W) tensor against the (N, C, H, W) target, and
 // one launch of each kernel covers all scales.
 //
-// Numerics. The window sums run in the plain versions' order (row-major
-// over the window, from zero) and the build turns off FMA contraction
-// (-fmad=false): the variance terms E[x^2] - mu^2 cancel in flat regions,
-// where a last-bit difference is amplified by 1/C2 (forward) or 1/C2^2
-// (gradient). K3's subgradients are JAX's: the clip's is 1 strictly inside,
-// 0.5 at an exact bound (identical windows give SSIM == 1 exactly) and 0
-// outside; |u| has slope +1 at u == 0.
+// Numerics. Every window sum runs in the plain versions' (and JAX's) order,
+// row-major over the window from zero, and the build turns off FMA
+// contraction (-fmad=false): the variance terms E[x^2] - mu^2 cancel in flat
+// regions, where a last-bit difference is amplified by 1/C2 (forward) or
+// 1/C2^2 (gradient). Every multiply and add here is a separately rounded
+// torch op in the plain version, so none may contract; the flag touches no
+// integer arithmetic. Divisions are true IEEE divisions; the window means
+// divide by 9, and K2's channel means by 3, with `div_by` (div_by.cuh),
+// which gives the IEEE quotient for every float (checked on the card over all
+// 2^32 bit patterns). The kernels reuse loaded values and their products
+// (a*a rounds the same wherever it is computed), never partial sums in
+// another order. K3's subgradients are
+// JAX's: the clip's is 1 strictly inside, 0.5 at an exact bound (identical
+// windows give SSIM == 1 exactly) and 0 outside; |u| has slope +1 at u == 0.
+//
+// Design, common to both kernels. One warp owns a strip of 32 columns and
+// TH rows of one image and walks down the rows, one lane per column. Each
+// step loads one input row (one coalesced 128-byte load per input, plus one
+// halo column at each end of the strip) and takes the horizontal neighbours
+// from the adjacent lanes with __shfl_sync, so a value is loaded once per
+// strip and the halo costs (TH+2)/TH rows (K2) or (TH+4)/TH (K3). A loaded
+// row is the last row of one window, the middle of the next and the first of
+// the one after: each lane keeps the running sums of the two windows still
+// open and starts a third, so no window row is held in registers and no sum
+// is re-associated. Reflect indexing is resolved once per warp for the
+// columns and once per row (warp-uniform) for the rows, so interior and edge
+// strips run the same instructions; only K3's folds are branches, taken by
+// the warps whose strip holds column 1 or W-2 or row 1 or H-2. Warps are
+// independent (no __syncthreads). The grid is one-dimensional over (image,
+// row tile, strip) tasks, WARPS per block, decoded once per warp with 32-bit
+// divisions: no 65,535-plane limit. The channels are a loop inside the warp.
+//
+// Bounds on the H100 (NVIDIA H100 80GB HBM3, 700.00 W). Both kernels are
+// bound by instruction issue, not by bytes. At the exp-212 shape (pred
+// 16x3x512x512, 4 preds per target) the bytes take 23.8 us (K2) and 38.8 us
+// (K3) at 3.35 TB/s. As built (-fmad=false: a multiply-add issues as two
+// instructions; an IEEE division is a reciprocal, five FMAs and a range
+// check), one row step of a warp issues ~171 SASS instructions in K2 and
+// ~335 in K3, per (pixel, channel) of 32 lanes; with the tiles' halos that is
+// 72 us (K2) and 161 us (K3) of issue at 4 warp instructions per clock per
+// SM at 1.98 GHz. What the design does about it: one window's statistics, one
+// center's coefficients and one 3x3 box sum per output (no recomputed halo
+// centers beyond the strip's two edge lanes), products of a loaded value
+// computed once, neighbours by shuffle instead of shared-memory round trips,
+// a row's loads issued one row step before the shuffles that use them,
+// divisions by 9 and 3 in three instructions, 32-bit row offsets, and
+// register caps (64 and 80) that keep 32 and 24 warps on each SM. PERF.md
+// has the measured times and the SASS counts.
 
+#include <climits>
 #include <cuda_runtime.h>
+
+#include "div_by.cuh"
 
 namespace {
 
-__device__ __forceinline__ int reflect(int i, int n) {
-  return i < 0 ? -i : (i >= n ? 2 * n - 2 - i : i);
+constexpr int WARPS = 4;  // warps per block, each an independent strip task
+constexpr unsigned FULL = 0xffffffffu;
+
+// reflect index -1 -> 1, n -> n-2 (n + 1 -> n-3), kept inside [0, n); the
+// rows and columns further out (-2, and beyond n + 1 in a strip's last
+// lanes) get some index inside, their values never reach an output
+__device__ __forceinline__ int reflect_clamp(int i, int n) {
+  i = abs(i);
+  return max(min(i, 2 * n - 2 - i), 0);
+}
+
+// one input row as a lane sees it: columns x-1, x, x+1 of pred (a), target (b)
+struct Row {
+  float al, a, ar, bl, b, br;
+};
+
+// A lane's four load addresses at row offset 0: its own column and its
+// halo column (the column left of the strip for lane 0, right of it for lane
+// 31, its own column again for the others, so the loads need no branch), in
+// pred (x) and target (y).
+struct Cols {
+  const float* x;
+  const float* xh;
+  const float* y;
+  const float* yh;
+};
+
+// keeps the compiler from folding a lane's column back into every row's
+// address, which it then recomputes in 64 bits
+template <typename T>
+__device__ __forceinline__ T* opaque(T* p) {
+  asm("" : "+l"(p));
+  return p;
+}
+
+__device__ __forceinline__ Cols cols(const float* xp, const float* yp, int col, int hcol) {
+  return {opaque(xp + col), opaque(xp + hcol), opaque(yp + col), opaque(yp + hcol)};
+}
+
+// one row's four loads at row offset `roff` (unsigned: one wide
+// multiply-add per address), issued a row step before the shuffles that use
+// them, so the loads are in flight while the previous row is computed
+struct RowLoads {
+  float a, b, ha, hb;
+};
+
+__device__ __forceinline__ RowLoads load_row(const Cols& p, unsigned roff) {
+  return {__ldg(p.x + roff), __ldg(p.y + roff), __ldg(p.xh + roff), __ldg(p.yh + roff)};
+}
+
+// the (left, own, right) halo-completed row
+__device__ __forceinline__ Row complete_row(const RowLoads& l, int lane) {
+  const float al = __shfl_up_sync(FULL, l.a, 1);
+  const float bl = __shfl_up_sync(FULL, l.b, 1);
+  const float ar = __shfl_down_sync(FULL, l.a, 1);
+  const float br = __shfl_down_sync(FULL, l.b, 1);
+  return {lane == 0 ? l.ha : al, l.a, lane == 31 ? l.ha : ar,
+          lane == 0 ? l.hb : bl, l.b, lane == 31 ? l.hb : br};
+}
+
+// running 3x3 window sums of x, y, x^2, y^2, xy
+struct Stats {
+  float sx, sy, sxx, syy, sxy;
+};
+
+// the products of one row, computed once and used by three windows
+struct RowProducts {
+  float aa[3], bb[3], ab[3];
+};
+
+__device__ __forceinline__ RowProducts products(const Row& r) {
+  RowProducts p;
+  p.aa[0] = r.al * r.al;
+  p.aa[1] = r.a * r.a;
+  p.aa[2] = r.ar * r.ar;
+  p.bb[0] = r.bl * r.bl;
+  p.bb[1] = r.b * r.b;
+  p.bb[2] = r.br * r.br;
+  p.ab[0] = r.al * r.bl;
+  p.ab[1] = r.a * r.b;
+  p.ab[2] = r.ar * r.br;
+  return p;
+}
+
+// a window's sums after its first row: 0 + v0 + v1 + v2 == (v0 + v1) + v2
+__device__ __forceinline__ Stats first_row(const Row& r, const RowProducts& p) {
+  Stats s;
+  s.sx = (r.al + r.a) + r.ar;
+  s.sy = (r.bl + r.b) + r.br;
+  s.sxx = (p.aa[0] + p.aa[1]) + p.aa[2];
+  s.syy = (p.bb[0] + p.bb[1]) + p.bb[2];
+  s.sxy = (p.ab[0] + p.ab[1]) + p.ab[2];
+  return s;
+}
+
+__device__ __forceinline__ Stats add_row(Stats s, const Row& r, const RowProducts& p) {
+  s.sx = ((s.sx + r.al) + r.a) + r.ar;
+  s.sy = ((s.sy + r.bl) + r.b) + r.br;
+  s.sxx = ((s.sxx + p.aa[0]) + p.aa[1]) + p.aa[2];
+  s.syy = ((s.syy + p.bb[0]) + p.bb[1]) + p.bb[2];
+  s.sxy = ((s.sxy + p.ab[0]) + p.ab[1]) + p.ab[2];
+  return s;
+}
+
+// task t -> (image, first row, first column); one 32-bit division pair per warp
+__device__ __forceinline__ void decode_task(int t, int nstrip, int ntile_y, int th,
+                                            int stride, int& mi, int& y0, int& x0) {
+  const int sx = t % nstrip;
+  const int rest = t / nstrip;
+  const int ty = rest % ntile_y;
+  mi = rest / ntile_y;
+  y0 = ty * th;
+  x0 = sx * stride;
 }
 
 // ---------------------------------------------------------------------------
-// K2. One thread per output pixel, looping over the channels and the 3x3
-// window. Reflect indexing (-1 -> 1, H -> H-2) happens in the kernel, so no
-// padded copy of either input exists in memory. The TPU kernel's row bands
-// and DMA staging only serve its scratch memory; here the nine overlapping
-// window reads of neighbouring threads are served by L1.
-// Bound: bytes. Each input value is read from device memory about once (the
-// window overlap is cached), 2*C floats in and one float out per pixel, and
-// ~60 flops per pixel and channel, far below the card's compute rate.
+// K2. A warp's strip is 32 output columns x TH rows; lane l owns column
+// x0 + l and the halo columns x0 - 1 (lane 0) and x0 + 32 (lane 31). The
+// channel loop is outside the row walk; a lane's per-row channel sums of the
+// clipped SSIM term and of |u| wait in shared memory (its own column, so no
+// bank conflicts and no barrier), in channel order as the plain version adds
+// them.
 // ---------------------------------------------------------------------------
-__global__ void reprojection_error_kernel(const float* __restrict__ pred,
-                                          const float* __restrict__ target,
-                                          float* __restrict__ out, int c, int h,
-                                          int w, int reps, float c1, float c2,
-                                          long long total) {
-  long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const long long plane = (long long)h * w;
-  const long long mi = idx / plane;
-  const int pix = (int)(idx - mi * plane);
-  const int y = pix / w;
-  const int x = pix - y * w;
+constexpr int K2_TH = 16;
+constexpr int K2_BLOCKS = 8;  // blocks per SM: at most 64 registers
 
-  int rows[3], cols[3];
-  for (int d = 0; d < 3; ++d) {
-    rows[d] = reflect(y + d - 1, h) * w;
-    cols[d] = reflect(x + d - 1, w);
-  }
+__global__ void __launch_bounds__(WARPS * 32, K2_BLOCKS)
+reprojection_error_kernel(const float* __restrict__ pred,
+                          const float* __restrict__ target,
+                          float* __restrict__ out, int c, int h, int w, int reps,
+                          float c1, float c2, int nstrip, int ntile_y, int ntasks) {
+  __shared__ float ssim_acc[WARPS][K2_TH][32];
+  __shared__ float l1_acc[WARPS][K2_TH][32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * WARPS + warp;
+  if (t >= ntasks) return;  // whole warps only
+  int mi, y0, x0;
+  decode_task(t, nstrip, ntile_y, K2_TH, 32, mi, y0, x0);
+  const int rows = min(K2_TH, h - y0);
+  const int x = x0 + lane;
+  const int col = reflect_clamp(x, w);
+  const int hcol = lane == 0 ? reflect_clamp(x0 - 1, w)
+                             : (lane == 31 ? reflect_clamp(x0 + 32, w) : col);
+  const size_t hw = (size_t)h * w;
+  const float* xp = pred + (size_t)mi * c * hw;
+  const float* yp = target + (size_t)(mi / reps) * c * hw;
+  float* op = opaque(out + (size_t)mi * hw + col);  // this lane's column
 
-  float ssim_sum = 0.0f;
-  float l1_sum = 0.0f;
-  const float* xp = pred + mi * c * plane;
-  const float* yp = target + (mi / reps) * c * plane;
-  for (int ci = 0; ci < c; ++ci) {
-    float sx = 0.0f, sy = 0.0f, sxx = 0.0f, syy = 0.0f, sxy = 0.0f;
-    for (int dy = 0; dy < 3; ++dy) {
-      for (int dx = 0; dx < 3; ++dx) {
-        const int o = rows[dy] + cols[dx];
-        const float a = __ldg(xp + o);
-        const float b = __ldg(yp + o);
-        sx += a;
-        sy += b;
-        sxx += a * a;
-        syy += b * b;
-        sxy += a * b;
+  for (int ci = 0; ci < c; ++ci, xp += hw, yp += hw) {
+    // input rows y0 - 1 .. y0 + rows; window of output y closes at row y + 1
+    Stats open2 = {}, open1 = {};  // windows with two rows and with one row
+    float a_mid = 0.0f, b_mid = 0.0f;  // pred, target at the previous row
+    const Cols p0 = cols(xp, yp, col, hcol);
+    RowLoads next = load_row(p0, reflect_clamp(y0 - 1, h) * w);
+    for (int k = 0; k <= rows + 1; ++k) {
+      const Row r = complete_row(next, lane);
+      if (k <= rows)  // prefetch the next row
+        next = load_row(p0, reflect_clamp(y0 + k, h) * w);
+      const RowProducts p = products(r);
+      if (k >= 2) {
+        const Stats s = add_row(open2, r, p);
+        const float mu_x = div_by<9>(s.sx);
+        const float mu_y = div_by<9>(s.sy);
+        const float sigma_x = div_by<9>(s.sxx) - mu_x * mu_x;
+        const float sigma_y = div_by<9>(s.syy) - mu_y * mu_y;
+        const float sigma_xy = div_by<9>(s.sxy) - mu_x * mu_y;
+        const float ssim_n = (2.0f * mu_x * mu_y + c1) * (2.0f * sigma_xy + c2);
+        const float ssim_d =
+            (mu_x * mu_x + mu_y * mu_y + c1) * (sigma_x + sigma_y + c2);
+        const float sv = fminf(fmaxf((1.0f - ssim_n / ssim_d) * 0.5f, 0.0f), 1.0f);
+        const float lv = fabsf(b_mid - a_mid);
+        const int i = k - 2;  // output row y0 + i
+        float ssim_sum = ci ? ssim_acc[warp][i][lane] : 0.0f;
+        float l1_sum = ci ? l1_acc[warp][i][lane] : 0.0f;
+        ssim_sum += sv;
+        l1_sum += lv;
+        if (ci == c - 1) {
+          if (x < w)
+            op[(unsigned)((y0 + i) * w)] =
+                0.85f * (c == 3 ? div_by<3>(ssim_sum) : ssim_sum / (float)c) +
+                0.15f * (c == 3 ? div_by<3>(l1_sum) : l1_sum / (float)c);
+        } else {
+          ssim_acc[warp][i][lane] = ssim_sum;
+          l1_acc[warp][i][lane] = l1_sum;
+        }
       }
+      open2 = add_row(open1, r, p);
+      open1 = first_row(r, p);
+      a_mid = r.a;
+      b_mid = r.b;
     }
-    const float mu_x = sx / 9.0f;
-    const float mu_y = sy / 9.0f;
-    const float sigma_x = sxx / 9.0f - mu_x * mu_x;
-    const float sigma_y = syy / 9.0f - mu_y * mu_y;
-    const float sigma_xy = sxy / 9.0f - mu_x * mu_y;
-    const float ssim_n = (2.0f * mu_x * mu_y + c1) * (2.0f * sigma_xy + c2);
-    const float ssim_d =
-        (mu_x * mu_x + mu_y * mu_y + c1) * (sigma_x + sigma_y + c2);
-    const float s = (1.0f - ssim_n / ssim_d) * 0.5f;
-    ssim_sum += fminf(fmaxf(s, 0.0f), 1.0f);
-    l1_sum += fabsf(__ldg(yp + pix) - __ldg(xp + pix));
-    xp += plane;
-    yp += plane;
   }
-  out[idx] = 0.85f * (ssim_sum / (float)c) + 0.15f * (l1_sum / (float)c);
 }
 
 // ---------------------------------------------------------------------------
@@ -110,162 +281,224 @@ __global__ void reprojection_error_kernel(const float* __restrict__ pred,
 // its sources: padded row 0 onto image row 1, padded row H+1 onto H-2, and
 // the same for columns (columns first, as the TPU code does). So an output at
 // row 1 (or H-2, column 1, W-2) also sums the centers of a second padded
-// position; rows 0 and H-1 receive no fold.
+// position: those are the centers of image row 0 (H-1, column 0, W-1)
+// alone, and that position's x_P and y_P are the output's own values.
 //
-// Design. One block per (TH x TW) output tile of one channel plane. It stages
-// the (TH+4) x (TW+4) window of padded pred and target in shared memory,
-// computes the five coefficient planes for the (TH+2) x (TW+2) centers around
-// the tile into shared memory, and each thread then sums the 3x3 centers of
-// its padded position(s). Centers outside the image carry zero.
-// Bound: bytes, barely. pred and dpred move 4 B per value, target 4 B per
-// value once for its `reps` preds, g 4 B per pixel; ~185 f32 operations per
-// value (the coefficients of 1.3 centers, the five box sums, fold and L1
-// term), so at the card's f32 rate the operations take ~90% of the time the
-// bytes do. Staging pred, target and the coefficient planes in shared
-// memory keeps the window reads and the center overlap off device memory.
+// A warp's strip: lane l owns center column x0 - 1 + l and, for lanes 1..30,
+// the output column of the same index, so the strip advances by 30 columns;
+// the input halo columns x0 - 2 and x0 + 31 come with lanes 0 and 31. The
+// walk goes over input rows y0 - 2 .. y0 + TH + 1: each closes the window of
+// one center row, whose five coefficients reach the neighbour lanes by
+// shuffle; each center row closes the 3x3 box sums of one output row. The
+// box sums run row-major from zero like the windows. Centers outside the
+// image carry zero. The folds take the first row of a box sum (row 0), the
+// first row of the next output's box sum (row H-1), and, in the warps that
+// hold column 1 or W-2, a second running sum down the neighbour's column;
+// what they keep between rows waits in shared memory, each lane in its own
+// column, so it costs the other warps no registers. g, which all channels
+// share, is staged once per strip in shared memory.
 // ---------------------------------------------------------------------------
-constexpr int TW = 32;
-constexpr int TH = 8;
-constexpr int SW = TW + 4;  // staged padded-grid columns [x0 - 1, x0 + TW + 3)
-constexpr int SH = TH + 4;  // staged padded-grid rows    [y0 - 1, y0 + TH + 3)
-constexpr int CW = TW + 2;  // centers, image columns [x0 - 1, x0 + TW + 1)
-constexpr int CH = TH + 2;  // centers, image rows    [y0 - 1, y0 + TH + 1)
+constexpr int K3_TH = 16;
+constexpr int K3_BLOCKS = 6;  // blocks per SM: at most 80 registers
 
-__global__ void __launch_bounds__(TW * TH)
+struct Coef {
+  float p1, p2, p2u, p3, p3u;
+};
+
+__device__ __forceinline__ Coef shfl_coef_up(const Coef& q) {
+  return {__shfl_up_sync(FULL, q.p1, 1), __shfl_up_sync(FULL, q.p2, 1),
+          __shfl_up_sync(FULL, q.p2u, 1), __shfl_up_sync(FULL, q.p3, 1),
+          __shfl_up_sync(FULL, q.p3u, 1)};
+}
+
+__device__ __forceinline__ Coef shfl_coef_down(const Coef& q) {
+  return {__shfl_down_sync(FULL, q.p1, 1), __shfl_down_sync(FULL, q.p2, 1),
+          __shfl_down_sync(FULL, q.p2u, 1), __shfl_down_sync(FULL, q.p3, 1),
+          __shfl_down_sync(FULL, q.p3u, 1)};
+}
+
+__device__ __forceinline__ Coef coef_add(Coef s, const Coef& q) {
+  s.p1 += q.p1;
+  s.p2 += q.p2;
+  s.p2u += q.p2u;
+  s.p3 += q.p3;
+  s.p3u += q.p3u;
+  return s;
+}
+
+// a box sum's first row from zero: (l + m) + r
+__device__ __forceinline__ Coef coef_row(const Coef& l, const Coef& m, const Coef& r) {
+  return coef_add(coef_add(l, m), r);
+}
+
+__device__ __forceinline__ Coef coef_add_row(const Coef& s, const Coef& l, const Coef& m,
+                                             const Coef& r) {
+  return coef_add(coef_add(coef_add(s, l), m), r);
+}
+
+// fold_s slots
+enum { TOP, TOP_L, TOP_R, VL2, VL1, VR2, VR1, FOLD_SLOTS };
+
+__device__ __forceinline__ void coef_put(float (&s)[5][32], int lane, const Coef& q) {
+  s[0][lane] = q.p1;
+  s[1][lane] = q.p2;
+  s[2][lane] = q.p2u;
+  s[3][lane] = q.p3;
+  s[4][lane] = q.p3u;
+}
+
+__device__ __forceinline__ Coef coef_get(const float (&s)[5][32], int lane) {
+  return {s[0][lane], s[1][lane], s[2][lane], s[3][lane], s[4][lane]};
+}
+
+__device__ __forceinline__ float dxp(const Coef& b, float xv, float yv) {
+  return div_by<9>(b.p1 + 2.0f * xv * b.p2 - 2.0f * b.p2u + yv * b.p3 - b.p3u);
+}
+
+__global__ void __launch_bounds__(WARPS * 32, K3_BLOCKS)
 reprojection_error_grad_kernel(const float* __restrict__ pred,
                                const float* __restrict__ target,
                                const float* __restrict__ g,
                                float* __restrict__ dpred, int c, int h, int w,
                                int reps, float c1, float c2, float kssim,
-                               float kl1) {
-  __shared__ float xs[SH][SW];
-  __shared__ float ys[SH][SW];
-  __shared__ float p1[CH][CW];
-  __shared__ float p2[CH][CW];
-  __shared__ float p2u[CH][CW];
-  __shared__ float p3[CH][CW];
-  __shared__ float p3u[CH][CW];
-
-  const int x0 = blockIdx.x * TW;
-  const int y0 = blockIdx.y * TH;
-  const int plane = blockIdx.z;  // m * c + ci
-  const int m = plane / c;
-  const int ci = plane - m * c;
-  const long long hw = (long long)h * w;
-  const float* xp = pred + (long long)plane * hw;
-  const float* yp = target + ((long long)(m / reps) * c + ci) * hw;
-  const float* gp = g + (long long)m * hw;
-  const int tid = threadIdx.y * TW + threadIdx.x;
-
-  // 1. pred and target on the padded grid; outside it, zeros (read only by
-  //    centers outside the image, whose coefficients are zero)
-  for (int k = tid; k < SH * SW; k += TW * TH) {
-    const int i = k / SW;
-    const int j = k - i * SW;
-    const int pr = y0 - 1 + i;
-    const int pc = x0 - 1 + j;
-    float a = 0.0f, b = 0.0f;
-    if (pr >= 0 && pr < h + 2 && pc >= 0 && pc < w + 2) {
-      const long long o = (long long)reflect(pr - 1, h) * w + reflect(pc - 1, w);
-      a = __ldg(xp + o);
-      b = __ldg(yp + o);
-    }
-    xs[i][j] = a;
-    ys[i][j] = b;
+                               float kl1, int nstrip, int ntile_y, int ntasks) {
+  __shared__ float g_s[WARPS][K3_TH + 2][32];  // g at the strip's center rows
+  // the folds' sums, each lane its own column: center row 0 and its
+  // neighbours (for output row 1), the neighbour columns' running sums
+  __shared__ float fold_s[WARPS][FOLD_SLOTS][5][32];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t = blockIdx.x * WARPS + warp;
+  if (t >= ntasks) return;  // whole warps only
+  int mi, y0, x0;
+  decode_task(t, nstrip, ntile_y, K3_TH, 30, mi, y0, x0);
+  const int rows = min(K3_TH, h - y0);
+  const int cc = x0 - 1 + lane;  // center column; output column for lanes 1..30
+  const bool col_live = cc >= 0 && cc < w;
+  const bool out_lane = lane >= 1 && lane <= 30 && cc < w;
+  const int col = reflect_clamp(cc, w);
+  const int hcol = lane == 0 ? reflect_clamp(x0 - 2, w)
+                             : (lane == 31 ? reflect_clamp(x0 + 31, w) : col);
+  // warp-uniform: does the strip hold column 1 or column w - 2?
+  const bool fold_cols = x0 <= 1 || (x0 <= w - 2 && w - 2 <= x0 + 29);
+  const bool fold_l = cc == 1, fold_r = cc == w - 2;
+  // warp-uniform: does the tile hold row 1 or row h - 2?
+  const bool fold_rows = y0 <= 1 || y0 + rows >= h - 1;
+  const size_t hw = (size_t)h * w;
+  const float* gp = g + (size_t)mi * hw;
+  for (int j = 0; j < rows + 2; ++j) {
+    const int cr = y0 - 1 + j;
+    g_s[warp][j][lane] = (col_live && cr >= 0 && cr < h) ? __ldg(gp + (size_t)cr * w + col)
+                                                         : 0.0f;
   }
-  __syncthreads();
+  __syncwarp();
+  const float* gs = &g_s[warp][0][lane];  // this lane's g, one row per 32 floats
+  const int m_t = mi / reps;
 
-  // 2. coefficient planes of the centers; center (i, j) has its window at
-  //    staged rows i..i+2 and columns j..j+2
-  for (int k = tid; k < CH * CW; k += TW * TH) {
-    const int i = k / CW;
-    const int j = k - i * CW;
-    const int cr = y0 - 1 + i;
-    const int cc = x0 - 1 + j;
-    float q1 = 0.0f, q2 = 0.0f, q2u = 0.0f, q3 = 0.0f, q3u = 0.0f;
-    if (cr >= 0 && cr < h && cc >= 0 && cc < w) {
-      float sx = 0.0f, sy = 0.0f, sxx = 0.0f, syy = 0.0f, sxy = 0.0f;
-      for (int dy = 0; dy < 3; ++dy) {
-        for (int dx = 0; dx < 3; ++dx) {
-          const float a = xs[i + dy][j + dx];
-          const float b = ys[i + dy][j + dx];
-          sx += a;
-          sy += b;
-          sxx += a * a;
-          syy += b * b;
-          sxy += a * b;
+  for (int ci = 0; ci < c; ++ci) {
+    const float* xp = pred + ((size_t)mi * c + ci) * hw;
+    const float* yp = target + ((size_t)m_t * c + ci) * hw;
+    float* dp = opaque(dpred + ((size_t)mi * c + ci) * hw + col);  // this lane's column
+    Stats open2 = {}, open1 = {};
+    Coef box2 = {}, box1 = {};  // box sums with two / one center rows
+    auto fold = [&](int slot) -> float(&)[5][32] { return fold_s[warp][slot]; };
+    float a1r = 0.0f, b1r = 0.0f, a2r = 0.0f, b2r = 0.0f;  // pred, target 1 and 2 rows back
+    const Cols p0 = cols(xp, yp, col, hcol);
+    RowLoads next = load_row(p0, reflect_clamp(y0 - 2, h) * w);
+    for (int k = 0; k <= rows + 3; ++k) {  // input row y0 - 2 + k
+      const Row r = complete_row(next, lane);
+      if (k <= rows + 2) next = load_row(p0, reflect_clamp(y0 - 1 + k, h) * w);
+      const RowProducts p = products(r);
+      if (k >= 2) {
+        // center row cr = y0 + k - 3 closes
+        const int cr = y0 + k - 3;
+        const float gk = gs[(k - 2) * 32];
+        const Stats s = add_row(open2, r, p);
+        Coef q = {};
+        if (cr >= 0 && cr < h && col_live) {
+          const float mu_x = div_by<9>(s.sx);
+          const float mu_y = div_by<9>(s.sy);
+          const float vx = div_by<9>(s.sxx) - mu_x * mu_x;
+          const float vy = div_by<9>(s.syy) - mu_y * mu_y;
+          const float vxy = div_by<9>(s.sxy) - mu_x * mu_y;
+          const float a1 = 2.0f * mu_x * mu_y + c1;
+          const float a2 = 2.0f * vxy + c2;
+          const float b1 = mu_x * mu_x + mu_y * mu_y + c1;
+          const float b2 = vx + vy + c2;
+          const float sv = (a1 * a2) / (b1 * b2);
+          const float inner = (1.0f - sv) * 0.5f;
+          const float live = (inner > 0.0f && inner < 1.0f)
+                                 ? 1.0f
+                                 : ((inner == 0.0f || inner == 1.0f) ? 0.5f : 0.0f);
+          const float e = gk * kssim * live;
+          q.p1 = e * (2.0f * a2 * (mu_y * b1 - mu_x * a1) / (b1 * b1 * b2));
+          q.p2 = e * (-(a1 * a2) / (b1 * b2 * b2));
+          q.p3 = e * (2.0f * a1 / (b1 * b2));
+          q.p2u = q.p2 * mu_x;
+          q.p3u = q.p3 * mu_y;
+        }
+        const Coef ql = shfl_coef_up(q);
+        const Coef qr = shfl_coef_down(q);
+        const Coef row = coef_row(ql, q, qr);  // first row of output cr + 1's box
+        if (k >= 4) {
+          // output row y = cr - 1: its box closes with center row cr
+          const int y = cr - 1;
+          const Coef box = coef_add_row(box2, ql, q, qr);
+          float o = dxp(box, a2r, b2r);
+          if (fold_cols) {  // padded column 0 (w + 1): centers of column 0 (w - 1)
+            if (fold_l) o += dxp(coef_add(coef_get(fold(VL2), lane), ql), a2r, b2r);
+            if (fold_r) o += dxp(coef_add(coef_get(fold(VR2), lane), qr), a2r, b2r);
+          }
+          if (fold_rows && y == 1) {  // padded row 0: the centers of image row 0
+            float o0 = dxp(coef_get(fold(TOP), lane), a2r, b2r);
+            if (fold_l) o0 += dxp(coef_get(fold(TOP_L), lane), a2r, b2r);
+            if (fold_r) o0 += dxp(coef_get(fold(TOP_R), lane), a2r, b2r);
+            o += o0;
+          }
+          if (fold_rows && y == h - 2) {  // padded row h + 1: the centers of row h - 1 == cr
+            float ob = dxp(row, a2r, b2r);
+            if (fold_l) ob += dxp(ql, a2r, b2r);
+            if (fold_r) ob += dxp(qr, a2r, b2r);
+            o += ob;
+          }
+          const float u = b2r - a2r;
+          o += gs[(y - y0 + 1) * 32] * kl1 * (u >= 0.0f ? -1.0f : 1.0f);
+          if (out_lane) dp[(unsigned)(y * w)] = o;
+        }
+        if (fold_rows && cr == 0) {
+          coef_put(fold(TOP), lane, row);
+          coef_put(fold(TOP_L), lane, ql);
+          coef_put(fold(TOP_R), lane, qr);
+        }
+        box2 = coef_add_row(box1, ql, q, qr);
+        box1 = row;
+        if (fold_cols) {
+          coef_put(fold(VL2), lane, coef_add(coef_get(fold(VL1), lane), ql));
+          coef_put(fold(VL1), lane, ql);
+          coef_put(fold(VR2), lane, coef_add(coef_get(fold(VR1), lane), qr));
+          coef_put(fold(VR1), lane, qr);
         }
       }
-      const float mu_x = sx / 9.0f;
-      const float mu_y = sy / 9.0f;
-      const float vx = sxx / 9.0f - mu_x * mu_x;
-      const float vy = syy / 9.0f - mu_y * mu_y;
-      const float vxy = sxy / 9.0f - mu_x * mu_y;
-      const float a1 = 2.0f * mu_x * mu_y + c1;
-      const float a2 = 2.0f * vxy + c2;
-      const float b1 = mu_x * mu_x + mu_y * mu_y + c1;
-      const float b2 = vx + vy + c2;
-      const float s = (a1 * a2) / (b1 * b2);
-      const float inner = (1.0f - s) * 0.5f;
-      const float live = (inner > 0.0f && inner < 1.0f)
-                             ? 1.0f
-                             : ((inner == 0.0f || inner == 1.0f) ? 0.5f : 0.0f);
-      const float e = __ldg(gp + (long long)cr * w + cc) * kssim * live;
-      q1 = e * (2.0f * a2 * (mu_y * b1 - mu_x * a1) / (b1 * b1 * b2));
-      q2 = e * (-(a1 * a2) / (b1 * b2 * b2));
-      q3 = e * (2.0f * a1 / (b1 * b2));
-      q2u = q2 * mu_x;
-      q3u = q3 * mu_y;
+      open2 = add_row(open1, r, p);
+      open1 = first_row(r, p);
+      a2r = a1r;
+      b2r = b1r;
+      a1r = r.a;
+      b1r = r.b;
     }
-    p1[i][j] = q1;
-    p2[i][j] = q2;
-    p2u[i][j] = q2u;
-    p3[i][j] = q3;
-    p3u[i][j] = q3u;
   }
-  __syncthreads();
+}
 
-  const int qx = x0 + threadIdx.x;
-  const int qy = y0 + threadIdx.y;
-  if (qx >= w || qy >= h) return;
-
-  // gradient at padded position (pr, pc): its centers are image rows
-  // pr-2..pr and columns pc-2..pc; those not staged lie outside the image
-  auto dxp = [&](int pr, int pc) -> float {
-    float b1s = 0.0f, b2s = 0.0f, b2us = 0.0f, b3s = 0.0f, b3us = 0.0f;
-    for (int dy = 0; dy < 3; ++dy) {
-      const int i = pr - 1 - y0 + dy;
-      if (i < 0 || i >= CH) continue;
-      for (int dx = 0; dx < 3; ++dx) {
-        const int j = pc - 1 - x0 + dx;
-        if (j < 0 || j >= CW) continue;
-        b1s += p1[i][j];
-        b2s += p2[i][j];
-        b2us += p2u[i][j];
-        b3s += p3[i][j];
-        b3us += p3u[i][j];
-      }
-    }
-    const float xv = xs[pr - y0 + 1][pc - x0 + 1];
-    const float yv = ys[pr - y0 + 1][pc - x0 + 1];
-    return (b1s + 2.0f * xv * b2s - 2.0f * b2us + yv * b3s - b3us) / 9.0f;
-  };
-  const int pr = qy + 1;
-  const int pc = qx + 1;
-  auto col_folded = [&](int r) -> float {
-    float v = dxp(r, pc);
-    if (pc == 2) v += dxp(r, 0);
-    if (pc == w - 1) v += dxp(r, w + 1);
-    return v;
-  };
-  float out = col_folded(pr);
-  if (pr == 2) out += col_folded(0);
-  if (pr == h - 1) out += col_folded(h + 1);
-
-  const long long o = (long long)qy * w + qx;
-  const float u = __ldg(yp + o) - __ldg(xp + o);
-  out += __ldg(gp + o) * kl1 * (u >= 0.0f ? -1.0f : 1.0f);
-  dpred[(long long)plane * hw + o] = out;
+// (image, row tile, strip) tasks and blocks of WARPS tasks; 0 if they fit
+int tasks(int m, int h, int w, int th, int stride, int& nstrip, int& ntile_y,
+          int& ntasks, unsigned& blocks) {
+  nstrip = (w + stride - 1) / stride;
+  ntile_y = (h + th - 1) / th;
+  const long long n = (long long)m * ntile_y * nstrip;
+  if (n > INT_MAX - WARPS) return (int)cudaErrorInvalidConfiguration;
+  ntasks = (int)n;
+  blocks = (unsigned)((n + WARPS - 1) / WARPS);
+  return 0;
 }
 
 }  // namespace
@@ -276,28 +509,29 @@ extern "C" int reprojection_error_f32(const float* pred, const float* target,
                                       float* out, int m, int c, int h, int w,
                                       int reps, float c1, float c2,
                                       void* stream) {
-  long long total = (long long)m * h * w;
-  if (total == 0) return 0;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  reprojection_error_kernel<<<(unsigned int)blocks, threads, 0,
-                              (cudaStream_t)stream>>>(pred, target, out, c, h,
-                                                      w, reps, c1, c2, total);
+  if ((long long)m * h * w == 0) return 0;
+  int nstrip, ntile_y, ntasks;
+  unsigned blocks;
+  if (int err = tasks(m, h, w, K2_TH, 32, nstrip, ntile_y, ntasks, blocks)) return err;
+  reprojection_error_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      pred, target, out, c, h, w, reps, c1, c2, nstrip, ntile_y, ntasks);
   return (int)cudaGetLastError();
 }
 
 // pred (m, c, h, w), target (m / reps, c, h, w), g (m, 1, h, w);
-// dpred (m, c, h, w). kssim = -0.85 / (2c), kl1 = 0.15 / c. Needs h >= 2,
-// w >= 2 and m * c <= 65535. Returns the cudaError_t of the launch.
+// dpred (m, c, h, w). kssim = -0.85 / (2c), kl1 = 0.15 / c. Needs h >= 2 and
+// w >= 2. Returns the cudaError_t of the launch.
 extern "C" int reprojection_error_grad_f32(const float* pred, const float* target,
                                            const float* g, float* dpred, int m,
                                            int c, int h, int w, int reps,
                                            float c1, float c2, float kssim,
                                            float kl1, void* stream) {
   if ((long long)m * c * h * w == 0) return 0;
-  dim3 block(TW, TH);
-  dim3 grid((w + TW - 1) / TW, (h + TH - 1) / TH, m * c);
-  reprojection_error_grad_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      pred, target, g, dpred, c, h, w, reps, c1, c2, kssim, kl1);
+  int nstrip, ntile_y, ntasks;
+  unsigned blocks;
+  if (int err = tasks(m, h, w, K3_TH, 30, nstrip, ntile_y, ntasks, blocks)) return err;
+  reprojection_error_grad_kernel<<<blocks, WARPS * 32, 0, (cudaStream_t)stream>>>(
+      pred, target, g, dpred, c, h, w, reps, c1, c2, kssim, kl1, nstrip, ntile_y,
+      ntasks);
   return (int)cudaGetLastError();
 }

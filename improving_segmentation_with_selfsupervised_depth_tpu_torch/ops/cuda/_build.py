@@ -55,7 +55,8 @@ def _find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC_DIR.glob("*.cu"))
+    # the headers (*.cuh) that the sources include are hashed with them
+    sources = sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")])
     digest = hashlib.sha256()
     for src in sources:
         digest.update(src.name.encode())

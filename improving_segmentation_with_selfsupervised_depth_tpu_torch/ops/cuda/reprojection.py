@@ -166,8 +166,6 @@ def reprojection_error_grad(pred: torch.Tensor, target: torch.Tensor, g: torch.T
     if not _kernel_device("reprojection_error_grad", (pred, target, g)):
         return reprojection_error_grad_plain(pred, target, g, reps)
     m, c, h, w = pred.shape
-    if m * c > 65535:
-        raise ValueError(f"reprojection_error_grad: {m} x {c} planes exceed the grid's z")
     lib = load_library()
     out = torch.empty_like(pred)
     with torch.cuda.device(pred.device):

@@ -13,10 +13,15 @@ gradient value: flat windows amplify a last-bit difference of a variance term
 by up to 1/C2^2 in its coefficients.
 """
 
+import ctypes
+import os
+import subprocess
+from pathlib import Path
+
 import pytest
 import torch
 
-from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops.cuda import warp
+from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops.cuda import _build, warp
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops.cuda.reprojection import (
     reprojection_error,
     reprojection_error_diff,
@@ -78,7 +83,11 @@ def test_warp_grid_gradient_matches_plain_autograd(cuda):
     assert float((g1.grad - g2.grad).abs().max()) <= 1e-4  # sums of 3 channels of O(10) terms
 
 
-@pytest.mark.parametrize("shape", [(8, 3, 64, 96), (2, 3, 37, 61), (1, 3, 2, 2)])
+# H not a multiple of the kernels' 16-row tiles, W not a multiple of their
+# 32- and 30-column strips, W odd, H and W of 2 and 3 (where the folds of the
+# padded rows 0 and H+1 land on the same row)
+@pytest.mark.parametrize("shape", [(8, 3, 64, 96), (2, 3, 37, 61), (1, 3, 2, 2), (1, 3, 50, 97),
+                                   (2, 3, 2, 3), (2, 3, 3, 2), (1, 3, 3, 3), (1, 3, 17, 31)])
 def test_reprojection_kernel_matches_plain(cuda, shape):
     gen = torch.Generator().manual_seed(2)
     pred = torch.rand(shape, generator=gen).to(cuda)
@@ -106,7 +115,11 @@ def _reprojection_inputs(n, reps, h, w, device, seed):
     return pred.to(device), target.to(device), g.to(device)
 
 
-@pytest.mark.parametrize("shape", [(2, 4, 64, 96), (2, 1, 37, 61), (1, 2, 13, 19), (1, 1, 2, 2)])
+# the edge shapes above with reps, and 21,846 x 3 = 65,538 planes: more than a
+# grid's z or y dimension holds
+@pytest.mark.parametrize("shape", [(2, 4, 64, 96), (2, 1, 37, 61), (1, 2, 13, 19), (1, 1, 2, 2),
+                                   (1, 4, 50, 97), (2, 1, 2, 3), (2, 1, 3, 2), (1, 2, 3, 3),
+                                   (1, 4, 17, 31), (21846, 1, 2, 2)])
 def test_reprojection_kernels_with_reps_match_plain(cuda, shape):
     n, reps, h, w = shape
     pred, target, g = _reprojection_inputs(n, reps, h, w, cuda, seed=sum(shape))
@@ -134,6 +147,21 @@ def test_fused_function_runs_k2_forward_and_k3_backward(cuda):
         before[0] + 1, before[1] + 1)
     dref = reprojection_error_grad_plain(pred, target, g, 2)
     assert float((leaf.grad - dref).abs().max()) <= 1e-5 * float(dref.abs().max())
+
+
+def test_divisions_by_nine_and_three_are_ieee_divisions(cuda):
+    """K2/K3's `div_by<9>` and `div_by<3>` (csrc/div_by.cuh) against the IEEE
+    division on all 2^32 floats, built from the test-only div_by_check.cu."""
+    src = Path(__file__).with_name("div_by_check.cu")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _build.BUILD_DIR / f"div_by_check_{os.getpid()}.so"
+    subprocess.run([_build._find_nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC_DIR),
+                    "-o", str(so), str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(so)).division_mismatches
+    fn.argtypes, fn.restype = (ctypes.c_void_p, ctypes.c_void_p), ctypes.c_int
+    count = torch.zeros((), dtype=torch.int64, device=cuda)
+    assert fn(count.data_ptr(), torch.cuda.current_stream().cuda_stream) == 0
+    assert int(count) == 0
 
 
 def test_kernels_reject_non_contiguous_input(cuda):

@@ -12,13 +12,20 @@ Phases, each reported on its own lines:
      times of both, of one PyTorch reference call where there is one (each
      the median of one-call CUDA-event timings), and the least time the card
      could take (bytes over its memory rate, or operations over its f32 rate);
+     K1's and `F.grid_sample`'s device times (profiler) at K1's main shape,
+     on per-pixel random and on smooth grids;
   4. small steps: one small train step on the card against the same step on
      the CPU, for the supervised SDE step and for the exp-212 step; a second
-     exp-212 step on each device checks the EMA update at alpha 0.5;
+     exp-212 step on each device checks the EMA update at alpha 0.5; the
+     exp-212 eval step on the card against the CPU;
   5. slices: the packaged configs through `train_main` (the trainer entry
      point) at full width, counting kernel launches from 0 around each run:
      `sde_supervised` (3 steps), `exp212_pad_online` with fused_reprojection
-     on (3 steps, the slice's main path) and the same with it off.
+     on (3 steps, the main path of training) and the same with it off,
+     `exp210_depthcomp` (3 steps, no kernel), and exp-212 validated after
+     steps 2 and 3 over 2 batches of 4 (the eval path: K1 and K2 per
+     batch); then the eval step alone at full width, for `sde_supervised`
+     and exp-212, with its launches, times and peak memory.
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failure raises, so the exit code is
 nonzero and no `ok` line is printed. There is no CPU fallback.
@@ -171,9 +178,31 @@ def _time_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def _warp_inputs(n, s, h, w, seed):
+def _device_ms(fn, reps=20):
+    """Device time per call of fn() from a `torch.profiler` trace of `reps`
+    calls after a warmup, as `cli/profile_cli.py` takes it: the sum of the
+    device times of the kernels launched, over `reps`. Returns (ms per call,
+    kernels per call, the kernels' names)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total_us = sum(e.device_time_total for e in kernels)
+    if total_us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return total_us / 1e3 / reps, len(kernels) / reps, sorted({e.name[:60] for e in kernels})
+
+
+def _warp_inputs(n, s, h, w, seed, smooth=False):
     """Image and S reprojection grids per image from random depth and a small
-    pose, with a few rows pushed far out of range (border clamps)."""
+    pose, with a few rows pushed far out of range (border clamps). The
+    disparity is random per pixel, or with `smooth` bilinearly upsampled from
+    a 1/32-size random map, as a decoder's is (neighbouring pixels then
+    sample neighbouring source pixels)."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     img = torch.rand((n, 3, h, w), generator=gen, device=dev)
@@ -184,7 +213,11 @@ def _warp_inputs(n, s, h, w, seed):
     T = geometry.transformation_from_parameters(aa, tr)
     grids = []
     for _ in range(s):
-        disp = torch.rand((n, 1, h, w), generator=gen, device=dev)
+        if smooth:
+            disp = F.interpolate(torch.rand((n, 1, h // 32, w // 32), generator=gen,
+                                            device=dev), size=(h, w), mode="bilinear")
+        else:
+            disp = torch.rand((n, 1, h, w), generator=gen, device=dev)
         _, depth = geometry.disp_to_depth(disp, 0.1, 100.0)
         grids.append(geometry.project_3d(geometry.backproject_depth(depth, inv_K), K, T, h, w))
     grids = torch.stack(grids, 1).reshape(n * s, h, w, 2).clone()
@@ -247,6 +280,21 @@ def phase_kernels():
         records["warp"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
                            "library_call": "F.grid_sample bilinear border, out plane only"}
+        # the device alone (no host work), K1 and F.grid_sample by the same
+        # profiler method, on these grids and on smooth ones
+        for suffix, smooth in (("", False), ("_smooth", True)):
+            img_d, grids_d = (img, grids) if not smooth else _warp_inputs(n, s, h, w, 5, True)
+            ix_d, iy_d = (t.contiguous() for t in warp.unnormalize_grid(grids_d, h, w))
+            img_d_rep = img_d.repeat_interleave(s, 0)
+            dev = _device_ms(lambda: warp.warp_bilinear_nchw(img_d, ix_d, iy_d, reps=s))
+            lib_dev = _device_ms(lambda: F.grid_sample(
+                img_d_rep, grids_d, mode="bilinear", padding_mode="border", align_corners=True))
+            for what, (d_ms, count, names) in (("K1", dev), ("F.grid_sample", lib_dev)):
+                print(f"[kernels] {what} device time per call, "
+                      f"{'smooth' if smooth else 'per-pixel random'} disparity: {d_ms:.4f} ms "
+                      f"({count:g} kernels per call: {names})")
+            records["warp"].update({"device_ms" + suffix: dev[0],
+                                    "library_device_ms" + suffix: lib_dev[0]})
 
     # K2 and K3: the per-scale pred error of one exp-212 source frame, its 4
     # scales against one target (reps 4, timed); the identity errors of sde
@@ -427,11 +475,66 @@ def _check_ema_mix(label, dev, ema1, student2, ema2, names):
         raise AssertionError(f"{label}: the EMA update on {dev} is not alpha 0.5 over {names}")
 
 
+def _small_eval(label, cfg_name, n):
+    """The eval step (resnet18, 64x128, batch n) on the card (K1, K2) against
+    the CPU (plain versions): same weights, with running statistics from one
+    train-mode pass (as the parity tests condition them), batch and
+    tie-break noise, f32 convolutions. The confusion matrices must be equal,
+    the losses and depth metrics within STEP_RTOL."""
+    cfg = _packaged_cfg(cfg_name)
+    cfg["model"]["backbone_name"] = "resnet18"
+    cfg["model"]["depth_args"] = {"intermediate_aspp": True, "aspp_rates": [1, 2]}
+    h, w = 64, 128
+    step_cfg = train_steps.step_config_from_cfg(cfg)
+    torch.manual_seed(0)
+    model = _no_dropout(joint.build_model(cfg["model"], 19))
+    batch = synthetic.make_synthetic_batch(n, h, w, seed=6)
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    for m in bns:
+        m.momentum = 1.0
+    model.train()
+    with torch.no_grad():
+        model(synthetic.to_device_batch(batch, "cpu"))
+    for m in bns:
+        m.momentum = 0.1
+        m.running_var.add_(0.5)
+    noise = torch.randn((n, 2, h, w), generator=torch.Generator().manual_seed(7))
+    results = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev in ("cpu", "cuda"):
+            _reset_launches()
+            metrics, conf, _ = train_steps.eval_step(
+                copy.deepcopy(model).to(dev), synthetic.to_device_batch(batch, dev), step_cfg,
+                tie_break_noise=noise.to(dev))
+            results.append(({k: float(v) for k, v in metrics.items()}, conf.cpu(),
+                            _read_launches()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (cpu_m, cpu_conf, cpu_l), (dev_m, dev_conf, dev_l) = results
+    print(f"[{label}] launches cpu {cpu_l}, card {dev_l}; confusion matrix sum "
+          f"{int(cpu_conf.sum())}, equal: {torch.equal(cpu_conf, dev_conf)}")
+    if any(cpu_l.values()) or dev_l != {"warp": 2, "reprojection": 4, "reprojection_grad": 0}:
+        raise AssertionError(f"{label}: launches cpu {cpu_l}, card {dev_l}")
+    if not torch.equal(cpu_conf, dev_conf):
+        raise AssertionError(f"{label}: confusion matrices differ in "
+                             f"{int((cpu_conf != dev_conf).sum())} cells")
+    for k, a in cpu_m.items():
+        b = dev_m[k]
+        print(f"[{label}] {k}: cpu {a:.7f} card {b:.7f}")
+        if not (math.isfinite(b) and abs(a - b) <= STEP_RTOL * abs(a)):
+            raise AssertionError(f"{label} {k}: card {b} vs cpu {a}")
+    if len([k for k in cpu_m if k.startswith("depth/")]) != 7:
+        raise AssertionError(f"{label}: depth metrics missing: {sorted(cpu_m)}")
+
+
 def phase_small_steps():
     _small_step("small sde step", "sde_supervised_synthetic.yml", 2)
     step_cfg = _small_step("small exp212 step", "exp212_pad_online_synthetic.yml", 4)
     if not (step_cfg.fused_pred_loss and step_cfg.use_ema):
         raise AssertionError("the exp212 small step must run K2/K3 and the EMA teacher")
+    _small_eval("small exp212 eval step", "exp212_pad_online_synthetic.yml", 4)
 
 
 def _reset_launches():
@@ -446,9 +549,11 @@ def _read_launches():
             "reprojection_grad": reprojection.reprojection_error_grad.launches}
 
 
-def _run_slice(label, cfg, per_step):
+def _run_slice(label, cfg, per_step, per_val_batch=None, n_validations=0):
     """`cfg` through train_main; checks finite moving losses and the kernel
-    launches, `per_step` of each kernel in every step."""
+    launches: `per_step` of each kernel in every step and, with
+    `training.val_interval`, `per_val_batch` in every batch of each of the
+    `n_validations` validations, whose records it checks too."""
     n_steps = cfg["training"]["train_iters"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -458,14 +563,23 @@ def _run_slice(label, cfg, per_step):
     peak = torch.cuda.max_memory_allocated()
     m = cfg["model"]
     print(f"[{label}] {m['backbone_name']} dilated {m['replace_stride_with_dilation']}, "
-          f"{m['segmentation_name']}, num_ch_dec {m['depth_args']['num_ch_dec']}, batch "
-          f"{cfg['training']['batch_size']} at {cfg['monodepth_options']['height']}x"
-          f"{cfg['monodepth_options']['width']}, fused_reprojection "
-          f"{cfg['training'].get('fused_reprojection', False)}, {n_steps} steps")
+          f"{m['segmentation_name']}, num_ch_dec {m['depth_args']['num_ch_dec']}, "
+          f"monodepth {not m.get('disable_monodepth', False)}, pose "
+          f"{not m.get('disable_pose', False)}, batch {cfg['training']['batch_size']} at "
+          f"{cfg['monodepth_options']['height']}x{cfg['monodepth_options']['width']}, "
+          f"fused_reprojection {cfg['training'].get('fused_reprojection', False)}, "
+          f"{n_steps} steps")
+    validations = []
     for i, r in enumerate(records, start=1):
-        losses = " ".join(f"{k} {v:.6f}" for k, v in r.items() if k.endswith("loss"))
+        losses = " ".join(f"{k} {v:.6f}" for k, v in r.items()
+                          if k.endswith("loss") and not k.startswith("val/"))
         print(f"[{label}] step {i}: {losses}  step {r['step_seconds']:.4f} s "
               f"(batch making {r['data_seconds']:.4f} s)")
+        val = {k[4:]: v for k, v in r.items() if k.startswith("val/")}
+        if val:
+            validations.append(val)
+            print(f"[{label}] validation after step {i}: " + " ".join(
+                f"{k} {v:.6f}" for k, v in val.items()))
     later = [r["step_seconds"] for r in records[1:]]
     print(f"[{label}] mean time of steps 2-{n_steps}: {statistics.mean(later):.4f} s; "
           f"peak memory allocated {peak / 2**30:.3f} GiB; launches {launches}")
@@ -473,12 +587,66 @@ def _run_slice(label, cfg, per_step):
         raise AssertionError(f"{label}: {len(records)} steps ran, {n_steps} asked")
     for r in records:
         if not all(math.isfinite(v) for v in r.values()):
-            raise AssertionError(f"{label}: non-finite loss: {r}")
+            raise AssertionError(f"{label}: non-finite value: {r}")
     if len({r["total_loss"] for r in records}) == 1:
         raise AssertionError(f"{label}: total_loss is constant across the steps")
+    if len(validations) != n_validations:
+        raise AssertionError(f"{label}: {len(validations)} validations, {n_validations} asked")
+    best = -math.inf
+    for val in validations:
+        best = max(best, val["Mean IoU"])
+        if not (0 <= val["Mean IoU"] <= 1 and val["best_iou"] == best
+                and len([k for k in val if k.startswith("depth/")]) == 7):
+            raise AssertionError(f"{label}: validation record {val}")
     expect = {k: v * n_steps for k, v in per_step.items()}
+    if n_validations:
+        vcfg = cfg["training"]
+        batches = -(-cfg["data"]["n_samples"] // vcfg.get("val_batch_size",
+                                                            vcfg["batch_size"]))
+        expect = {k: v + per_val_batch[k] * batches * n_validations for k, v in expect.items()}
     if launches != expect:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expect}")
+    return launches
+
+
+def _eval_step_once(label, cfg_name):
+    """One eval step of a packaged config at full width, on its first
+    validation batch (`val_batch_size`, default the training batch): K1 2 and
+    K2 4 launches, K3 none. Then its host time (the first call's and the
+    median of 5 more), its device time per call (profiler) and the peak
+    memory of one call."""
+    run = trainer.build_run(_packaged_cfg(cfg_name), "cuda:0")
+    batch = next(run.val_batches())
+    gen = torch.Generator(device="cuda:0").manual_seed(0)
+
+    def step():
+        metrics, conf, _ = train_steps.eval_step(run.model, batch, run.step_cfg, generator=gen)
+        return {k: float(v) for k, v in metrics.items()}, conf
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    values, conf = step()
+    first = time.perf_counter() - t0
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    n_lbl = int((batch["lbl"] != 250).sum())
+    if launches != {"warp": 2, "reprojection": 4, "reprojection_grad": 0}:
+        raise AssertionError(f"{label}: launches {launches}")
+    if not all(math.isfinite(v) for v in values.values()) or int(conf.sum()) != n_lbl:
+        raise AssertionError(f"{label}: {values}, confusion matrix sum {int(conf.sum())}")
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        times.append(time.perf_counter() - t0)
+    dev_ms, n_kernels, _ = _device_ms(step, reps=3)
+    print(f"[{label}] batch {batch['lbl'].shape[0]} at {tuple(batch['lbl'].shape[1:])}: "
+          f"launches {launches}; first call {first:.4f} s, then median "
+          f"{statistics.median(times):.4f} s; device {dev_ms:.2f} ms per call "
+          f"({n_kernels:g} kernels); peak memory allocated {peak / 2**30:.3f} GiB; "
+          + " ".join(f"{k} {v:.6f}" for k, v in values.items()))
     return launches
 
 
@@ -499,6 +667,23 @@ def phase_slices():
     cfg["training"]["fused_reprojection"] = False
     launches["exp212_pad_online_unfused"] = _run_slice(
         "slice exp212 unfused", cfg, {"warp": 4, "reprojection": 4, "reprojection_grad": 0})
+    # exp-210: a segmentation-only model, no photometric loss, no kernel
+    launches["exp210_depthcomp"] = _run_slice(
+        "slice exp210", _packaged_cfg("exp210_depthcomp_synthetic.yml"),
+        {"warp": 0, "reprojection": 0, "reprojection_grad": 0})
+    # validation: exp-212's 3 steps as above, validated after steps 2 and 3
+    # over 2 batches of 4; each batch warps each source frame once (K1) and
+    # takes its identity and pred errors through K2, without a backward
+    cfg = _packaged_cfg("exp212_pad_online_synthetic.yml")
+    cfg["training"].update(val_interval=2, val_batch_size=4)
+    cfg["data"]["n_samples"] = 8
+    launches["exp212_pad_online_validated"] = _run_slice(
+        "eval exp212", cfg, {"warp": 4, "reprojection": 8, "reprojection_grad": 4},
+        per_val_batch={"warp": 2, "reprojection": 4, "reprojection_grad": 0}, n_validations=2)
+    launches["sde_supervised_eval_step"] = _eval_step_once(
+        "eval step sde", "sde_supervised_synthetic.yml")
+    launches["exp212_pad_online_eval_step"] = _eval_step_once(
+        "eval step exp212", "exp212_pad_online_synthetic.yml")
     return launches
 
 

@@ -127,7 +127,8 @@ def state_dict_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
     unknown = set(params) - {"encoder", "pose_encoder", "pose", "depth", "segmentation",
                              "mtl_decoder"}
     if unknown:
-        raise not_ported(f"converting JAX submodules {sorted(unknown)}", "exp-210")
+        raise not_ported(f"converting JAX submodules {sorted(unknown)}",
+                         "SDE pretraining, phase 2")
     depth_args = dict(model_cfg.get("depth_args") or {})
     sd: Dict[str, torch.Tensor] = {}
     for enc in ("encoder", "pose_encoder"):

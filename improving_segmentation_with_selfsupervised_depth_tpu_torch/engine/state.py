@@ -11,7 +11,9 @@ the student's,
 with `step` the count of steps taken before this one, so the first update
 copies the student. Only the submodules in `names` move (None: all). The
 teacher's buffers (BatchNorm running statistics) are never averaged: it runs
-in train mode, on batch statistics, as in the JAX package.
+in train mode, on batch statistics, as in the JAX package. With
+`freeze_backbone_bn` its encoder runs on its running statistics, copies of
+the student's, which the frozen encoder never changes.
 """
 
 from __future__ import annotations

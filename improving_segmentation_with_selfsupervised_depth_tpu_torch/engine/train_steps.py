@@ -1,6 +1,6 @@
-"""The train step: supervised SDE, and the mean-teacher DepthMix step.
+"""The train step (supervised SDE, mean-teacher DepthMix) and the eval step.
 
-Port of the JAX package's `engine/train_steps.py::make_train_step` for two
+Port of the JAX package's `engine/train_steps.py::make_train_step` for these
 configurations:
 - supervised (the `sde` step): one train-mode forward (BatchNorm running
   statistics update in it), the photometric loss through K1/K2 (and K3 with
@@ -13,6 +13,23 @@ configurations:
   the mixed and strongly augmented images, the mixed forward without pose and
   its confidence-weighted pseudo-label loss; then one backward, the optimizer
   step and the EMA update.
+
+The semi-supervised step also runs offline DepthMix (`depthmix_online_depth`
+off, the exp-210 `s210` step): the mask's depths are the unlabeled batch's
+`pseudo_depth`, and the model may have no depth decoder and no pose network.
+Besides DepthMix's depthcomp and depth masks it takes ClassMix (`class`) and
+depth-histogram (`depthhist`) masks. The berhu pseudo-depth loss on `disp_0`
+(`pseudo_depth_lambda`) skips the bottom 10% of rows, and
+`backward_first_pseudo_label` adds the teacher's pseudo-label loss on the
+unlabeled forward. `freeze_backbone_bn` is the model's
+(`models/joint.py`): its encoder's BatchNorm stays on running statistics in
+the student and the teacher alike.
+
+`eval_step` is the validation step (JAX `make_eval_step`): an eval-mode
+forward without gradient, the CE loss and the confusion matrix, the
+photometric loss through K1 and K2 (`fused_pred`) or, without a pose
+network, the pose-free depth forward, the pseudo-depth loss with a depth
+teacher, and the depth metrics.
 
 Losses come back as 0-dim tensors, so the step itself never waits for the
 device. JAX's random keys become injectable draws (`StepDraws`): what is not
@@ -29,7 +46,8 @@ import torch
 from .. import not_ported
 from ..ops import photometric
 from ..ops.image import color_jitter, gaussian_blur, uniform
-from ..ops.losses import IGNORE_INDEX, cross_entropy2d
+from ..ops.losses import IGNORE_INDEX, berhu, cross_entropy2d
+from ..ops.metrics import confusion_matrix
 from ..ops.mixing import (
     depthhist_thresholds,
     generate_class_mask,
@@ -38,7 +56,9 @@ from ..ops.mixing import (
     mix,
 )
 from ..ops.photometric import key_of
+from ..ops.resize import resize_bilinear
 from .state import ema_model_names, update_ema
+from .trainer_depth_eval import eval_depth_metrics
 
 _PHOTOMETRIC_DTYPES = {None: None, "bfloat16": torch.bfloat16}
 EMA_ALPHA = 0.99  # the teacher's EMA rate (JAX StepConfig.ema_alpha)
@@ -49,11 +69,15 @@ class StepConfig:
     """The fields of the JAX `StepConfig` that the ported steps read."""
 
     monodepth_lambda: float = 0.0
+    pseudo_depth_lambda: float = 0.0
     segmentation_lambda: float = 1.0
+    pseudo_depth_loss_log: bool = False
     frame_ids: Tuple[Any, ...] = (0, -1, 1)
     scales: Tuple[int, ...] = (0, 1, 2, 3)
     min_depth: float = 0.1
     max_depth: float = 100.0
+    test_min_depth: float = 0.1
+    test_max_depth: float = 100.0
     disparity_smoothness: float = 1e-3
     no_ssim: bool = False
     avg_reprojection: bool = False
@@ -64,6 +88,11 @@ class StepConfig:
     # the per-scale pred error through K2 forward and K3 backward
     # (training.fused_reprojection)
     fused_pred_loss: bool = False
+    # the model's depth decoder and pose network (the eval step's branches)
+    disable_monodepth: bool = False
+    disable_pose: bool = False
+    # `data.depth_teacher` is set: the eval step reports the pseudo-depth loss
+    has_depth_teacher: bool = False
     num_classes: int = 19
     # semi-supervised (training.unlabeled_segmentation)
     unlabeled: bool = False
@@ -75,6 +104,7 @@ class StepConfig:
     depthcomp_margin: float = 0.0
     depthcomp_foreground_threshold: Any = 0.0
     depthmix_online_depth: bool = False
+    backward_first_pseudo_label: bool = False
     use_ema: bool = False
     ema_names: Optional[Tuple[str, ...]] = None
 
@@ -94,6 +124,8 @@ class StepDraws:
     blur_sigma: the blur's sigma.
     mix_threshold: the depthcomp foreground threshold draw (when it is a
       range), or the per-sample (N, 1, 1) thresholds of the depth mask.
+    class_scores: the ClassMix mask's (N, C) U(0, 1) class scores.
+    depthhist_u: the depth-histogram mask's (N,) U(0, 1) draws.
     """
 
     tie_break_noise_u: Optional[torch.Tensor] = None
@@ -102,6 +134,8 @@ class StepDraws:
     blur_sigma: Optional[float] = None
     blur_apply: Optional[float] = None
     mix_threshold: Any = None
+    class_scores: Optional[torch.Tensor] = None
+    depthhist_u: Optional[torch.Tensor] = None
 
 
 def _monodepth_loss(cfg: StepConfig, batch, outputs, generator, tie_break_noise):
@@ -115,6 +149,16 @@ def _monodepth_loss(cfg: StepConfig, batch, outputs, generator, tie_break_noise)
         fused_pred=cfg.fused_pred_loss, pred_dtype=cfg.photometric_dtype,
         generator=generator, tie_break_noise=tie_break_noise)
     return cfg.monodepth_lambda * losses["loss"]
+
+
+def _pseudo_depth_loss(cfg: StepConfig, disp0: torch.Tensor, pseudo_depth: torch.Tensor):
+    """berhu of `disp_0` against the offline pseudo-depth (N, 1, H, W), the
+    bottom 10% of rows (the own car's hood) masked out (reference
+    train.py:491-493)."""
+    h = disp0.shape[2]
+    rows = torch.arange(h, device=disp0.device).reshape(1, 1, h, 1)
+    mask = (rows < int(h * 0.9)).float().expand_as(disp0)
+    return berhu(disp0, pseudo_depth, mask, apply_log=cfg.pseudo_depth_loss_log)
 
 
 def _segmentation_loss(cfg: StepConfig, outputs, labels):
@@ -156,9 +200,11 @@ def generate_mix_mask(cfg: StepConfig, argmax_u_w: torch.Tensor, depths,
             thr = uniform(generator, depths.device, (n, 1, 1), lo=0.1, hi=0.4)
         return generate_depth_mask(depths, torch.as_tensor(thr, device=depths.device))
     if cfg.mix_mask == "class":
-        return generate_class_mask()
+        return generate_class_mask(argmax_u_w, cfg.num_classes, IGNORE_INDEX,
+                                   scores=draws.class_scores, generator=generator)
     if cfg.mix_mask == "depthhist":
-        return depthhist_thresholds()
+        thr = depthhist_thresholds(depths, u=draws.depthhist_u, generator=generator)
+        return generate_depth_mask(depths, thr.reshape(n, 1, 1))
     if cfg.mix_mask is None:
         return torch.ones((n, h, w), device=argmax_u_w.device)
     raise NotImplementedError(f"Unknown mix_mask {cfg.mix_mask}")
@@ -197,7 +243,7 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
     """
     semi = cfg.unlabeled and cfg.use_ema
     if cfg.unlabeled and not cfg.use_ema:
-        raise not_ported("unlabeled_segmentation without the EMA teacher", "exp-210")
+        raise not_ported("unlabeled_segmentation without the EMA teacher", "exp-210 options")
     if semi and (unlabeled_batch is None or teacher is None):
         raise ValueError("the semi-supervised step needs unlabeled_batch and teacher")
     model.train()
@@ -221,6 +267,10 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
     mono_loss = zero
     if cfg.monodepth_lambda > 0:
         mono_loss = _monodepth_loss(cfg, batch, outputs, generator, tie_break_noise)
+    pseudo_depth_loss = zero
+    if cfg.pseudo_depth_lambda > 0:
+        pseudo_depth_loss = cfg.pseudo_depth_lambda * _pseudo_depth_loss(
+            cfg, outputs["disp_0"], batch["pseudo_depth"])
     seg_loss = zero
     if cfg.segmentation_lambda > 0:
         seg_loss = _segmentation_loss(cfg, outputs, batch["lbl"])
@@ -229,7 +279,7 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
     metrics = {}
     if semi:
         unlabeled_imgs = unlabeled_batch[key_of("color_aug", 0, 0)]
-        mono_loss_u = zero
+        mono_loss_u = l_1 = zero
         if cfg.depthmix_online_depth:
             out_1 = model(unlabeled_batch)
             if cfg.monodepth_lambda > 0:
@@ -241,6 +291,8 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
                 depths = ((d - dmin) / (dmax - dmin + 1e-12))[:, 0]
             else:
                 depths = unlabeled_batch["pseudo_depth"][:, 0]
+            if cfg.backward_first_pseudo_label:
+                l_1, _ = pseudo_label_loss(cfg, teacher_softmax, out_1["semantics"])
         elif "pseudo_depth" in unlabeled_batch:
             depths = unlabeled_batch["pseudo_depth"][:, 0]
         else:
@@ -255,10 +307,10 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
         out_s = model(mixed_batch, use_pose=False)
         l_2, _ = pseudo_label_loss(cfg, mixed_softmax, out_s["semantics"])
 
-        seg_total = seg_total + l_2
+        seg_total = seg_total + l_2 + l_1
         mono_total = mono_total + mono_loss_u
-        metrics["unlabeled_loss"] = l_2.detach()
-    total = seg_total + mono_total
+        metrics["unlabeled_loss"] = (l_2 + l_1).detach()
+    total = seg_total + mono_total + pseudo_depth_loss
 
     optimizer.zero_grad()
     total.backward()
@@ -266,10 +318,72 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
     optimizer.step()
     if cfg.use_ema:
         update_ema(teacher, model, step, EMA_ALPHA, cfg.ema_names)
+    # the ImageNet encoder's feature-distance loss is not ported: always 0
     metrics.update({"segmentation_loss": seg_loss.detach(), "mono_loss": mono_loss.detach(),
+                    "pseudo_depth_loss": pseudo_depth_loss.detach(), "feat_dist_loss": zero,
                     "segmentation_total_loss": seg_total.detach(),
                     "mono_total_loss": mono_total.detach(), "total_loss": total.detach()})
     return metrics
+
+
+@torch.no_grad()
+def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor], cfg: StepConfig,
+              generator: Optional[torch.Generator] = None,
+              tie_break_noise: Optional[torch.Tensor] = None):
+    """One validation batch (NCHW) through the model in eval mode.
+
+    Returns (metrics, conf, aux): 0-dim tensors `segmentation_loss`,
+    `monodepth_loss`, `pseudo_depth_loss` and, where the model predicts
+    depth, `depth/*` (`engine/trainer_depth_eval.py`); the batch's (C, C)
+    int64 confusion matrix; `pred` (N, H, W) and `disp_0`. With a pose
+    network the photometric loss runs K1 and the fused K2 error on CUDA
+    tensors; its tie-break noise is `tie_break_noise` or drawn from
+    `generator`, as in `ops/photometric.py::compute_losses`.
+    """
+    model.eval()
+    outputs = model(batch)
+    zero = torch.zeros((), device=batch["lbl"].device)
+    metrics: Dict[str, torch.Tensor] = {}
+    aux: Dict[str, torch.Tensor] = {}
+
+    conf = torch.zeros((cfg.num_classes, cfg.num_classes), dtype=torch.int64,
+                       device=zero.device)
+    metrics["segmentation_loss"] = zero
+    if cfg.segmentation_lambda > 0:
+        labels = batch["lbl"]
+        semantics = outputs["semantics"]
+        metrics["segmentation_loss"] = cross_entropy2d(semantics, labels)
+        semantics = resize_bilinear(semantics, labels.shape[1:], align_corners=True)
+        pred = semantics.argmax(1)
+        conf = confusion_matrix(labels, pred, cfg.num_classes)
+        aux["pred"] = pred
+
+    metrics["monodepth_loss"] = zero
+    if not cfg.disable_monodepth:
+        if not cfg.disable_pose:
+            out2 = photometric.generate_images_pred(
+                batch, outputs, scales=cfg.scales, frame_ids=cfg.frame_ids,
+                min_depth=cfg.min_depth, max_depth=cfg.max_depth)
+            metrics["monodepth_loss"] = photometric.compute_losses(
+                batch, out2, scales=cfg.scales, frame_ids=cfg.frame_ids,
+                disparity_smoothness=cfg.disparity_smoothness, no_ssim=cfg.no_ssim,
+                avg_reprojection=cfg.avg_reprojection,
+                disable_automasking=cfg.disable_automasking, fused_pred=True,
+                generator=generator, tie_break_noise=tie_break_noise)["loss"]
+        else:
+            outputs.update(model.predict_test_disp(batch))
+            outputs.update(photometric.generate_depth_test_pred(
+                outputs, scales=cfg.scales, test_min_depth=cfg.test_min_depth,
+                test_max_depth=cfg.test_max_depth))
+        aux["disp_0"] = outputs["disp_0"]
+
+    metrics["pseudo_depth_loss"] = zero
+    if cfg.has_depth_teacher and "pseudo_depth" in batch and "disp_0" in outputs:
+        metrics["pseudo_depth_loss"] = _pseudo_depth_loss(cfg, outputs["disp_0"],
+                                                          batch["pseudo_depth"])
+    if "disp_0" in outputs:
+        metrics.update(eval_depth_metrics(cfg, batch, outputs))
+    return metrics, conf, aux
 
 
 def step_config_from_cfg(cfg: Dict[str, Any]) -> StepConfig:
@@ -282,18 +396,13 @@ def step_config_from_cfg(cfg: Dict[str, Any]) -> StepConfig:
     u = t.get("unlabeled_segmentation") or {}
     if t.get("amp", False):
         raise not_ported("training.amp (bf16 model)", "amp/bf16 model")
-    for key, item in (("pseudo_depth_lambda", "exp-210"), ("feat_dist_lambda", "exp-210")):
-        if t.get(key, 0.0):
-            raise not_ported(f"training.{key}", item)
+    if t.get("feat_dist_lambda", 0.0):
+        raise not_ported("training.feat_dist_lambda (ImageNet encoder)",
+                         "SDE pretraining, phase 2")
     if t.get("fuse_unlabeled_forward", False):
         raise not_ported("training.fuse_unlabeled_forward", "exp-212 options")
     if u.get("debug_images", u.get("debug_image", False)):
         raise not_ported("unlabeled_segmentation.debug_images", "exp-212 options")
-    if u.get("backward_first_pseudo_label", False):
-        raise not_ported("unlabeled_segmentation.backward_first_pseudo_label", "exp-210")
-    if u and not u.get("depthmix_online_depth", False):
-        raise not_ported("offline pseudo-depth DepthMix (depthmix_online_depth: false)",
-                         "exp-210")
     if t.get("pred_layout", "pack") != "pack" or t.get("remat_photometric", False):
         raise not_ported("training.pred_layout other than 'pack' / remat_photometric",
                          "amp/bf16 model")
@@ -303,17 +412,24 @@ def step_config_from_cfg(cfg: Dict[str, Any]) -> StepConfig:
     fg_thr = u.get("depthcomp_foreground_threshold", 0.0)
     return StepConfig(
         monodepth_lambda=t.get("monodepth_lambda", 0.0),
+        pseudo_depth_lambda=t.get("pseudo_depth_lambda", 0.0),
         segmentation_lambda=t.get("segmentation_lambda", 1.0),
+        pseudo_depth_loss_log=t.get("pseudo_depth_loss_log", False),
         frame_ids=tuple(mono.get("frame_ids", (0, -1, 1))),
         scales=tuple(range(mono.get("num_scales", 4))),
         min_depth=mono.get("min_depth", 0.1),
         max_depth=mono.get("max_depth", 100.0),
+        test_min_depth=mono.get("test_min_depth", mono.get("min_depth", 0.1)),
+        test_max_depth=mono.get("test_max_depth", mono.get("max_depth", 100.0)),
         disparity_smoothness=mono.get("disparity_smoothness", 1e-3),
         no_ssim=mono.get("no_ssim", False),
         avg_reprojection=mono.get("avg_reprojection", False),
         disable_automasking=mono.get("disable_automasking", False),
         photometric_dtype=_PHOTOMETRIC_DTYPES[dtype_name],
         fused_pred_loss=t.get("fused_reprojection", False),
+        disable_monodepth=m.get("disable_monodepth", False),
+        disable_pose=m.get("disable_pose", False),
+        has_depth_teacher=cfg.get("data", {}).get("depth_teacher") is not None,
         num_classes=cfg.get("data", {}).get("n_classes", 19),
         unlabeled=bool(u),
         consistency_weight=u.get("consistency_weight", 1.0),
@@ -325,6 +441,7 @@ def step_config_from_cfg(cfg: Dict[str, Any]) -> StepConfig:
         depthcomp_foreground_threshold=(tuple(fg_thr) if isinstance(fg_thr, (list, tuple))
                                         else fg_thr),
         depthmix_online_depth=u.get("depthmix_online_depth", False),
+        backward_first_pseudo_label=u.get("backward_first_pseudo_label", False),
         use_ema=bool(u),
         ema_names=ema_model_names(t, m),
     )

@@ -16,7 +16,9 @@ Forward takes the batch dict (see ops/photometric.py) and returns "bottleneck",
 "disp_{s}", "semantics" (N, classes, H, W), with PAD "intermediate_semantics",
 and, unless `use_pose=False`, "axisangle_0_{f}", "translation_0_{f}"
 (N, 2, 1, 3) and "cam_T_cam_0_{f}" (N, 4, 4). Train or eval mode is the
-module's own (`model.train()` / `model.eval()`).
+module's own (`model.train()` / `model.eval()`); with `freeze_backbone_bn`
+the encoder stays in eval mode, so its BatchNorm normalizes with its running
+statistics and leaves them unchanged (the JAX `train_encoder_bn=False`).
 """
 
 from __future__ import annotations
@@ -44,12 +46,14 @@ class JointSegmentationDepth(nn.Module):
                  segmentation_name="joint_seg_depth_dec", segmentation_args=None,
                  depth_args=None, num_classes: int = 19, frame_ids=(0, -1, 1),
                  num_scales: int = 4, pose_pair_batching: bool = True,
-                 disable_monodepth: bool = False, disable_pose: bool = False):
+                 disable_monodepth: bool = False, disable_pose: bool = False,
+                 freeze_backbone_bn: bool = False):
         super().__init__()
         if frame_ids[0] != 0 or "s" in frame_ids:
             raise ValueError(f"frame_ids must start with 0 and hold no stereo 's': {frame_ids}")
         self.frame_ids = tuple(frame_ids)
         self.pose_pair_batching = pose_pair_batching
+        self.freeze_backbone_bn = freeze_backbone_bn
         self.use_pose_net = not disable_pose and not disable_monodepth and len(frame_ids) > 1
         ch_enc = num_ch_enc(backbone_depth)
         depth_args = dict(depth_args or {})
@@ -70,6 +74,12 @@ class JointSegmentationDepth(nn.Module):
             models["pose"] = PoseDecoder(num_ch_enc(18), 1, 2)
         self.models = nn.ModuleDict(models)
         init_weights(self)
+
+    def train(self, mode: bool = True):
+        super().train(mode)
+        if self.freeze_backbone_bn:
+            self.models["encoder"].train(False)
+        return self
 
     def predict_poses(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Pairwise poses in temporal order, inverted for past frames
@@ -112,16 +122,26 @@ class JointSegmentationDepth(nn.Module):
             outputs.update(self.predict_poses(inputs))
         return outputs
 
+    def predict_test_disp(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The pose-free depth forward on the un-augmented `color_0_0`
+        (reference joint_segmentation_depth.py:72-75): the depth decoder's
+        outputs, or all of PAD's."""
+        features = self.models["encoder"](inputs[key_of("color", 0, 0)])
+        if "mtl_decoder" in self.models:
+            return self.models["mtl_decoder"](features)
+        return self.models["depth"](features)
+
 
 def build_model(model_cfg: Dict[str, Any], n_classes: int) -> JointSegmentationDepth:
     """Config-dict factory with the JAX package's `build_model` schema."""
     m = dict(model_cfg)
     if m.get("enable_imnet_encoder", False):
-        raise not_ported("model.enable_imnet_encoder (feature-distance loss)", "exp-210")
+        raise not_ported("model.enable_imnet_encoder (feature-distance loss)",
+                         "SDE pretraining, phase 2")
     if m.get("pose_model_input", "pairs") != "pairs":
-        raise not_ported("model.pose_model_input other than 'pairs'", "exp-210")
-    if m.get("provide_uncropped_for_pose", False) or m.get("freeze_backbone_bn", False):
-        raise not_ported("model.provide_uncropped_for_pose / freeze_backbone_bn", "exp-210")
+        raise not_ported("model.pose_model_input other than 'pairs'", "exp-210 options")
+    if m.get("provide_uncropped_for_pose", False):
+        raise not_ported("model.provide_uncropped_for_pose", "exp-210 options")
     if m.get("remat", False):
         raise not_ported("model.remat", "amp/bf16 model")
     rsd = m.get("replace_stride_with_dilation")
@@ -141,4 +161,5 @@ def build_model(model_cfg: Dict[str, Any], n_classes: int) -> JointSegmentationD
         pose_pair_batching=m.get("pose_pair_batching", True),
         disable_monodepth=m.get("disable_monodepth", False),
         disable_pose=m.get("disable_pose", False),
+        freeze_backbone_bn=m.get("freeze_backbone_bn", False),
     )

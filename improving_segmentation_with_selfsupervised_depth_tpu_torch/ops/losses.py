@@ -1,7 +1,8 @@
-"""Cross-entropy with ignore index (NCHW logits).
+"""Cross-entropy with ignore index (NCHW logits) and the reverse-Huber
+depth loss.
 
-Port of the JAX package's `ops/losses.py::cross_entropy2d` (reference
-loss/loss.py:18-37) without class weights.
+Port of the JAX package's `ops/losses.py`: `cross_entropy2d` (reference
+loss/loss.py:18-37) without class weights, and `berhu` (loss/loss.py:5-15).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .image import abs_jax
 from .resize import resize_bilinear
 
 IGNORE_INDEX = 250
@@ -36,3 +38,16 @@ def cross_entropy2d(logits: torch.Tensor, target: torch.Tensor,
         return (pixel_weights.detach() * nll).mean()
     valid = (target != ignore_index).sum().clamp(min=1)
     return nll.sum() / valid
+
+
+def berhu(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+          apply_log: bool = False) -> torch.Tensor:
+    """Reverse-Huber loss with the threshold c = 0.2 max |err|, averaged over
+    every element (masked ones count as 0). c carries no gradient and is at
+    least 1e-12; `apply_log` compares log1p of both sides."""
+    if apply_log:
+        pred = torch.log1p(pred)
+        target = torch.log1p(target)
+    absdiff = abs_jax(target - pred) * mask
+    c = torch.clamp_min(0.2 * absdiff.detach().amax(), 1e-12)
+    return torch.where(absdiff <= c, absdiff, (absdiff * absdiff + c * c) / (2.0 * c)).mean()

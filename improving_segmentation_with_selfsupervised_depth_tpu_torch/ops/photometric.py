@@ -17,6 +17,9 @@ exact bound (`ops/image.py`), and the min over sources splits its gradient
 evenly between equal values (`amin`; `min(dim).values` would give it all to
 one).
 
+For validation: `generate_depth_test_pred`, the pose-free depths of every
+scale, and `depth_metrics` (abs_rel, sq_rel, rms, log_rms, a1-a3).
+
 Batch keys: color_{f}_{s} (N, 3, H, W), K_{s} / inv_K_{s} (N, 4, 4).
 Output keys read: disp_{s} (N, 1, H/2^s, W/2^s), cam_T_cam_0_{f} (N, 4, 4).
 """
@@ -156,3 +159,40 @@ def compute_losses(inputs: Dict[str, torch.Tensor], outputs: Dict[str, torch.Ten
 
     losses["loss"] = total_loss / len(scales)
     return losses
+
+
+def generate_depth_test_pred(outputs: Dict[str, torch.Tensor], *, scales: Sequence[int],
+                             test_min_depth: float, test_max_depth: float
+                             ) -> Dict[str, torch.Tensor]:
+    """Pose-free depth prediction for eval (reference
+    loss/monodepth_loss.py:54-62): a new dict with `depth_0_{s}`, each
+    scale's disparity resized to `disp_0`'s size and turned into depth."""
+    out = dict(outputs)
+    h, w = outputs[key_of("disp", 0)].shape[2:]
+    for scale in scales:
+        disp = resize_bilinear(outputs[key_of("disp", scale)], (h, w), align_corners=False)
+        _, out[key_of("depth", 0, scale)] = disp_to_depth(disp, test_min_depth, test_max_depth)
+    return out
+
+
+def depth_metrics(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """The standard monodepth metrics over the pixels where `mask` is set:
+    abs_rel, sq_rel, rms, log_rms and the shares a1-a3 of pixels whose ratio
+    to the truth is below 1.25, 1.25^2 and 1.25^3."""
+    mask = mask.float()
+    n = mask.sum().clamp_min(1.0)
+
+    def mean(x):
+        return (x * mask).sum() / n
+
+    thresh = torch.maximum(pred / (gt + 1e-12), gt / (pred + 1e-12))
+    return {
+        "abs_rel": mean((pred - gt).abs() / (gt + 1e-12)),
+        "sq_rel": mean((pred - gt) ** 2 / (gt + 1e-12)),
+        "rms": torch.sqrt(mean((pred - gt) ** 2)),
+        "log_rms": torch.sqrt(mean((torch.log(pred + 1e-12) - torch.log(gt + 1e-12)) ** 2)),
+        "a1": mean((thresh < 1.25).float()),
+        "a2": mean((thresh < 1.25**2).float()),
+        "a3": mean((thresh < 1.25**3).float()),
+    }

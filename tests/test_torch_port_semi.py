@@ -1,7 +1,8 @@
 """The semi-supervised modules of the port against the JAX package's.
 
 Strong augmentation (color jitter, Gaussian blur) with the JAX draws passed
-in, mixing and the depthcomp mask (exact), the EMA update, the PAD decoder's
+in, mixing and the depthcomp, class and depth-histogram masks (exact), the
+EMA update, the PAD decoder's
 outputs and state_dict round trip, and the PAD optimizer groups. Inputs come
 from numpy seeds; dropout is off on both sides.
 
@@ -27,6 +28,12 @@ from improving_segmentation_with_selfsupervised_depth_tpu.engine.full_model_inte
 from improving_segmentation_with_selfsupervised_depth_tpu.engine.optim import (
     build_param_labels,
 )
+from improving_segmentation_with_selfsupervised_depth_tpu.engine.train_steps import (
+    StepConfig as JaxStepConfig,
+)
+from improving_segmentation_with_selfsupervised_depth_tpu.engine.train_steps import (
+    generate_mix_mask as jax_generate_mix_mask,
+)
 from improving_segmentation_with_selfsupervised_depth_tpu.models import build_model
 from improving_segmentation_with_selfsupervised_depth_tpu.ops import image as jimage
 from improving_segmentation_with_selfsupervised_depth_tpu.ops import mixing as jmixing
@@ -39,6 +46,11 @@ from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine.interop i
 )
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine.optim import (
     build_optimizer,
+)
+from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine.train_steps import (
+    StepConfig,
+    StepDraws,
+    generate_mix_mask,
 )
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.models.joint import (
     build_model as build_port_model,
@@ -141,10 +153,27 @@ def test_mix_and_depthcomp_mask_match_jax_exactly():
 
 
 def test_class_and_depthhist_masks_are_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mixing.generate_class_mask()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mixing.depthhist_thresholds()
+    """The ClassMix and depth-histogram masks through the steps' mask
+    dispatch (`generate_mix_mask`), against the JAX package's with its draws
+    passed in: equal masks."""
+    rng = np.random.default_rng(9)
+    n, c = 4, 19
+    labels = rng.integers(0, c, (n, 24, 40)).astype(np.int32)
+    labels[1] = np.where(labels[1] < 6, labels[1], 2)
+    depths = (rng.uniform(0, 1, (n, 24, 40)) ** 2).astype(np.float32)
+    key = jax.random.PRNGKey(11)
+    for mask_name, draws in (
+            ("class", StepDraws(class_scores=torch.from_numpy(
+                np.asarray(jax.random.uniform(key, (n, c))).copy()))),
+            ("depthhist", StepDraws(depthhist_u=torch.from_numpy(
+                np.asarray(jax.random.uniform(key, (n,))).copy())))):
+        ref = np.asarray(jax_generate_mix_mask(
+            JaxStepConfig(mix_mask=mask_name, num_classes=c), key, jnp.asarray(labels),
+            jnp.asarray(depths)))
+        got = generate_mix_mask(StepConfig(mix_mask=mask_name, num_classes=c),
+                                torch.from_numpy(labels), torch.from_numpy(depths), draws)
+        assert np.array_equal(got.numpy(), ref), mask_name
+        assert 0 < ref.mean() < 1
 
 
 @pytest.fixture(scope="module")

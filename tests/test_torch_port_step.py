@@ -178,12 +178,11 @@ def test_train_main_runs_the_exp212_config_shrunk():
 
 @pytest.mark.parametrize("section,key,value", [
     ("training", "amp", True),
-    ("training", "pseudo_depth_lambda", 1.0),
-    ("training", "unlabeled_segmentation", {"mix_mask": "depthcomp"}),
-    ("training", "unlabeled_segmentation", {"mix_mask": "depthcomp", "depthmix_online_depth": True,
-                                            "backward_first_pseudo_label": True}),
+    ("training", "feat_dist_lambda", 1.0),
+    ("training", "early_stopping", {"patience": 5}),
+    ("model", "pose_model_input", "all"),
     ("training", "fuse_unlabeled_forward", True),
-    ("training", "val_interval", {"0": 100}),
+    ("training", "unlabeled_segmentation", {"mix_mask": "depthcomp", "debug_images": True}),
     ("training", "save_model", True),
     ("data", "dataset", "cityscapes"),
     ("model", "enable_imnet_encoder", True),

@@ -15,7 +15,8 @@ Phases, each reported on its own lines:
      K1's and `F.grid_sample`'s device times (profiler) at K1's main shape,
      on per-pixel random and on smooth grids;
   4. small steps: one small train step on the card against the same step on
-     the CPU, for the supervised SDE step and for the exp-212 step; a second
+     the CPU (losses, gradients, parameters), for the supervised SDE step and
+     for the exp-212 step; a second
      exp-212 step on each device checks the EMA update at alpha 0.5; the
      exp-212 eval step on the card against the CPU;
   5. slices: the packaged configs through `train_main` (the trainer entry
@@ -25,7 +26,22 @@ Phases, each reported on its own lines:
      `exp210_depthcomp` (3 steps, no kernel), and exp-212 validated after
      steps 2 and 3 over 2 batches of 4 (the eval path: K1 and K2 per
      batch); then the eval step alone at full width, for `sde_supervised`
-     and exp-212, with its launches, times and peak memory.
+     and exp-212, with its launches, times and peak memory;
+  6. sde_pretrain: SDE pretraining, phase 1 then phase 2, through
+     `train_main` at full width (ResNet-101 dilated, dec6 + ASPP, ResNet-18
+     pose, batch 4 at 512x512): seeded stand-in weights in the published
+     `.pth` layouts are written into a temporary SDT_MODEL_DIR; dec5 (frozen
+     ImageNet backbone, Adam) runs 3 steps validated after steps 2 and 3 and
+     exports its components; dec6 (bf16 amp, the ImageNet encoder and its
+     feature distance) loads them and runs 3 steps the same way. Checks the
+     frozen encoder bit for bit, its moving BatchNorm statistics, the pose
+     encoder's two-frame conv1, the loaded components and the feature
+     distance; prints step times, peak memory, launches per step and per
+     validation batch, validation time per batch and the ImageNet encoder's
+     forward time. The small-steps phase also holds a small dec6 step card
+     vs CPU in f32 and in bf16 (amp, `torch.autocast` on both devices; the
+     losses), and the bf16 backward of a smooth function of the dec6
+     model's outputs, card vs CPU, against the CPU's f32 backward.
 The line before the last is the kernels' JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failure raises, so the exit code is
 nonzero and no `ok` line is printed. There is no CPU fallback.
@@ -37,10 +53,13 @@ import copy
 import importlib.util
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -50,12 +69,20 @@ import yaml
 
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.data import synthetic
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine import (
+    checkpoints,
     optim,
     state,
     train_steps,
     trainer,
 )
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.models import joint
+from improving_segmentation_with_selfsupervised_depth_tpu_torch.models.pose_decoder import (
+    PoseDecoder,
+)
+from improving_segmentation_with_selfsupervised_depth_tpu_torch.models.resnet import (
+    ResNetEncoder,
+    num_ch_enc,
+)
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops import geometry
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops.cuda import (
     _build,
@@ -75,6 +102,31 @@ KERNEL_TOL = 1e-5  # K1, K2: both sides f32, identical corner indices / window s
 # which is why the bound is relative to the gradient's own scale.
 K3_REL_TOL = 1e-5
 STEP_RTOL = 1e-3   # small train steps, card vs CPU: op-order rounding only
+# the small f32 steps' gradients, card vs CPU, |card - cpu| / |cpu|: f32
+# op-order rounding flips the photometric min's near-ties on random weights,
+# which moves gradients by 1-4% of a tensor's largest element between the
+# port and JAX, and by 1.4% between 1 and 6 CPU threads
+# (tests/test_torch_port_sde_pretrain.py); measured card vs CPU: 1.2e-2
+# (sde), 2.9e-3 (exp-212), 1.5e-3 (dec6). A wrong backward is off by O(1).
+STEP_GRAD_RTOL = 5e-2
+# the small bf16 (amp) step, card vs CPU autocast: both round to bf16 at the
+# same points (8 significant bits), in other accumulation orders; a bf16
+# model's outputs lie up to ~10% of their largest value from another bf16
+# implementation of the same model (tests/test_torch_port_sde_pretrain.py,
+# the port against the JAX package), and the losses average that over every
+# pixel.
+BF16_LOSS_RTOL = 2e-2
+# The bf16 backward, card vs CPU, on a smooth function of the model's
+# outputs (the photometric min's choices flip under bf16 rounding, so the
+# step's own gradients are not compared). Per submodule, the card's bf16
+# gradient lies at most BF16_GRAD_OFF times as far from the CPU's f32
+# gradient as the CPU's bf16 gradient does, and at most BF16_GRAD_APART
+# times that far from the CPU's bf16 gradient (two independent bf16 noises
+# of equal size lie sqrt(2) apart). The same bounds hold the port's bf16
+# backward against the JAX bf16 model's on the CPU, with ratios 0.99-1.29
+# and 1.06-1.47 (tests/test_torch_port_sde_pretrain.py).
+BF16_GRAD_OFF = 1.5
+BF16_GRAD_APART = 2.0
 
 # NVIDIA H100 SXM data sheet: HBM3 rate and the f32 rate outside the tensor
 # cores (the kernels do f32 arithmetic on CUDA cores)
@@ -387,34 +439,45 @@ def _params(module):
     return {k: p.detach().clone() for k, p in module.named_parameters()}
 
 
-def _small_step(label, cfg_name, n):
+def _angle(a, b):
+    """The angle between two flat gradients, in degrees."""
+    cos = torch.nn.functional.cosine_similarity(a, b, dim=0).clamp(-1.0, 1.0)
+    return math.degrees(math.acos(float(cos)))
+
+
+def _small_step(label, cfg_name, n, amp=False):
     """A small train step (resnet18, 64x128, batch n) on the card (kernels)
     against the same step on the CPU (plain versions): same weights, batches
     and draws, f32 convolutions on both sides. Checks the losses, the
-    parameters and, for the semi-supervised step, the EMA teacher's
-    parameters after the step.
+    gradients, the parameters and, for the semi-supervised step, the EMA
+    teacher's parameters after the step.
 
     The semi-supervised step then runs a second time on each device, and
     the teacher must be exactly 0.5 teacher + 0.5 student in the EMA's
     submodules and unchanged elsewhere (the first update copies the
     student). The second step is not compared card vs CPU: its pseudo-label
     threshold and depthcomp mask turn the first step's rounding differences
-    into discrete flips."""
+    into discrete flips.
+
+    With `amp` the model runs under bf16 autocast on both devices and only
+    the losses are held, to BF16_LOSS_RTOL: `_small_amp_backward` holds the
+    bf16 backward. Returns the step config."""
     cfg = _packaged_cfg(cfg_name)
     cfg["model"]["backbone_name"] = "resnet18"
     cfg["model"]["depth_args"] = {"intermediate_aspp": True, "aspp_rates": [1, 2]}
     cfg["training"]["photometric_dtype"] = None
+    cfg["training"]["amp"] = amp  # amp: the model and the SSIM/L1 chain in bf16
     h, w = 64, 128
     step_cfg = train_steps.step_config_from_cfg(cfg)
     devices = ("cpu", "cuda")
     torch.manual_seed(0)
-    models = [_no_dropout(joint.build_model(cfg["model"], 19))]
+    models = [_no_dropout(joint.build_model(cfg["model"], 19, amp=amp))]
     models.append(copy.deepcopy(models[0]).to(devices[1]))
     batch = synthetic.make_synthetic_batch(n, h, w, seed=3)
     ubatch = synthetic.make_synthetic_batch(n, h, w, seed=4, with_unlabeled_extras=True)
     gen = torch.Generator().manual_seed(5)
     noise, noise_u = (torch.randn((n, 2, h, w), generator=gen) for _ in range(2))
-    results, after = [], []
+    results, after, grads = [], [], []
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
@@ -435,6 +498,8 @@ def _small_step(label, cfg_name, n):
 
             results.append(step())
             after.append({"params": _params(model)})
+            grads.append(torch.cat([p.grad.detach().double().cpu().flatten()
+                                    for p in model.parameters() if p.grad is not None]))
             if step_cfg.use_ema:
                 after[-1]["EMA params"] = _params(kw["teacher"])
                 second = step()
@@ -443,11 +508,19 @@ def _small_step(label, cfg_name, n):
                                _params(kw["teacher"]), step_cfg.ema_names)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+    rel = float((grads[1] - grads[0]).norm() / grads[0].norm())
+    print(f"[{label}] gradients card vs cpu: {_angle(grads[0], grads[1]):.4f} degrees apart, "
+          f"|card - cpu| / |cpu| {rel:.3e}" + ("" if amp else f" (at most {STEP_GRAD_RTOL:g})"))
+    rtol = BF16_LOSS_RTOL if amp else STEP_RTOL
     for k in results[0]:
         a, b = results[0][k], results[1][k]
-        print(f"[{label}] {k}: cpu {a:.7f} card {b:.7f}")
-        if not (math.isfinite(b) and abs(a - b) <= STEP_RTOL * abs(a)):
+        print(f"[{label}] {k}: cpu {a:.7f} card {b:.7f} (rtol {rtol:g})")
+        if not (math.isfinite(b) and abs(a - b) <= rtol * abs(a)):
             raise AssertionError(f"{label} {k}: card {b} vs cpu {a}")
+    if amp:
+        return step_cfg
+    if not rel <= STEP_GRAD_RTOL:
+        raise AssertionError(f"{label}: gradients card vs cpu differ by {rel}")
     for what in after[0]:
         cpu_p, dev_p = after[0][what], after[1][what]
         diff = max(float((dev_p[k].cpu() - cpu_p[k]).abs().max()) for k in cpu_p)
@@ -455,6 +528,64 @@ def _small_step(label, cfg_name, n):
         if not diff <= 1e-4:
             raise AssertionError(f"{label}: {what} differ by {diff}")
     return step_cfg
+
+
+def _small_amp_backward(label, cfg_name, n):
+    """The model's backward under amp (resnet18, 64x128, batch n, train
+    mode) on the card against the CPU's, both in bf16 autocast, anchored on
+    the CPU's f32 backward: the parameter gradients of a smooth function of
+    the outputs, random projections of the disparities and poses plus the
+    feature distance (`training.feat_dist_lambda`), per submodule, held to
+    BF16_GRAD_OFF and BF16_GRAD_APART. The depth decoder's kernels are
+    halved, as the parity tests condition them: a random decoder saturates
+    the disparity's sigmoid, whose gradient the bf16 logits' rounding then
+    sets (CPU bf16 from f32: 98% of the decoder gradient's norm, 10% once
+    halved)."""
+    cfg = _packaged_cfg(cfg_name)
+    cfg["model"]["backbone_name"] = "resnet18"
+    cfg["model"]["depth_args"] = {"intermediate_aspp": True, "aspp_rates": [1, 2]}
+    feat_dist = cfg["training"]["feat_dist_lambda"]
+    torch.manual_seed(0)
+    model = _no_dropout(joint.build_model(cfg["model"], 19))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("models.depth.") and p.dim() == 4:
+                p.mul_(0.5)
+    batch = synthetic.make_synthetic_batch(n, 64, 128, seed=8)
+    gen = torch.Generator().manual_seed(9)
+    projections, grads = None, {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for dev, amp in (("cpu", False), ("cpu", True), ("cuda", True)):
+            m = copy.deepcopy(model).to(dev)
+            m.amp = amp
+            m.train()
+            out = m(synthetic.to_device_batch(batch, dev))
+            if projections is None:
+                projections = {k: torch.randn(out[k].shape, generator=gen) for k in sorted(out)
+                               if k.startswith(("disp_", "axisangle_", "translation_"))}
+            loss = sum((out[k].float() * r.to(dev)).mean() for k, r in projections.items())
+            d = out["encoder_features"].float() - out["imnet_features"].float()
+            (loss + feat_dist * torch.sqrt((d * d).sum())).backward()
+            grads[dev, amp] = {k: p.grad.detach().double().cpu()
+                               for k, p in m.named_parameters() if p.grad is not None}
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for top in ("encoder", "depth", "pose_encoder", "pose"):
+        keys = [k for k in grads["cpu", False] if k.split(".")[1] == top]
+        f32, cpu16, card16 = (torch.cat([g[k].flatten() for k in keys])
+                              for g in (grads["cpu", False], grads["cpu", True],
+                                        grads["cuda", True]))
+        scale = float(f32.norm())
+        noise = float((cpu16 - f32).norm())
+        off, apart = float((card16 - f32).norm()), float((card16 - cpu16).norm())
+        print(f"[{label}] {top}: |bf16 - f32| / |f32| cpu {noise / scale:.3e}, card "
+              f"{off / scale:.3e} (at most {BF16_GRAD_OFF:g} x the cpu's); |card - cpu| "
+              f"{apart / scale:.3e} (at most {BF16_GRAD_APART:g} x)")
+        if not (0 < off <= BF16_GRAD_OFF * noise and apart <= BF16_GRAD_APART * noise):
+            raise AssertionError(f"{label} {top}: card bf16 {off / scale} from f32, "
+                                 f"{apart / scale} from the cpu's bf16; cpu {noise / scale}")
 
 
 def _check_ema_mix(label, dev, ema1, student2, ema2, names):
@@ -535,6 +666,13 @@ def phase_small_steps():
     if not (step_cfg.fused_pred_loss and step_cfg.use_ema):
         raise AssertionError("the exp212 small step must run K2/K3 and the EMA teacher")
     _small_eval("small exp212 eval step", "exp212_pad_online_synthetic.yml", 4)
+    # the dec6 step (Adam, the frozen ImageNet encoder, the feature distance)
+    # in f32, then with amp, then the bf16 backward alone
+    step_cfg = _small_step("small sde_dec6 step, f32", "sde_dec6_crop_synthetic.yml", 4)
+    if not step_cfg.feat_dist_lambda > 0:
+        raise AssertionError("the dec6 small step must run the feature distance")
+    _small_step("small sde_dec6 step, amp (bf16)", "sde_dec6_crop_synthetic.yml", 4, amp=True)
+    _small_amp_backward("small sde_dec6 backward, amp (bf16)", "sde_dec6_crop_synthetic.yml", 4)
 
 
 def _reset_launches():
@@ -549,24 +687,26 @@ def _read_launches():
             "reprojection_grad": reprojection.reprojection_error_grad.launches}
 
 
-def _run_slice(label, cfg, per_step, per_val_batch=None, n_validations=0):
-    """`cfg` through train_main; checks finite moving losses and the kernel
-    launches: `per_step` of each kernel in every step and, with
+def _run_slice(label, cfg, per_step, per_val_batch=None, n_validations=0, run=None):
+    """`cfg` through train_main (on `run`, as `trainer.build_run` made it, or
+    a new one); checks finite moving losses and the kernel launches:
+    `per_step` of each kernel in every step and, with
     `training.val_interval`, `per_val_batch` in every batch of each of the
-    `n_validations` validations, whose records it checks too."""
+    `n_validations` validations, whose records it checks too (mIoU only
+    where the model segments)."""
     n_steps = cfg["training"]["train_iters"]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    records = trainer.train_main(cfg, device="cuda:0")
+    records = trainer.train_main(cfg, device="cuda:0", run=run)
     launches = _read_launches()
     peak = torch.cuda.max_memory_allocated()
-    m = cfg["model"]
+    m, mono = cfg["model"], cfg["monodepth_options"]
     print(f"[{label}] {m['backbone_name']} dilated {m['replace_stride_with_dilation']}, "
           f"{m['segmentation_name']}, num_ch_dec {m['depth_args']['num_ch_dec']}, "
           f"monodepth {not m.get('disable_monodepth', False)}, pose "
           f"{not m.get('disable_pose', False)}, batch {cfg['training']['batch_size']} at "
-          f"{cfg['monodepth_options']['height']}x{cfg['monodepth_options']['width']}, "
+          f"{mono.get('crop_h', mono['height'])}x{mono.get('crop_w', mono['width'])}, "
           f"fused_reprojection {cfg['training'].get('fused_reprojection', False)}, "
           f"{n_steps} steps")
     validations = []
@@ -581,8 +721,9 @@ def _run_slice(label, cfg, per_step, per_val_batch=None, n_validations=0):
             print(f"[{label}] validation after step {i}: " + " ".join(
                 f"{k} {v:.6f}" for k, v in val.items()))
     later = [r["step_seconds"] for r in records[1:]]
-    print(f"[{label}] mean time of steps 2-{n_steps}: {statistics.mean(later):.4f} s; "
-          f"peak memory allocated {peak / 2**30:.3f} GiB; launches {launches}")
+    print(f"[{label}] mean time of steps 2-{n_steps}: {statistics.mean(later):.4f} s, "
+          f"median {statistics.median(later):.4f} s; peak memory allocated "
+          f"{peak / 2**30:.3f} GiB; launches {launches}")
     if len(records) != n_steps:
         raise AssertionError(f"{label}: {len(records)} steps ran, {n_steps} asked")
     for r in records:
@@ -593,11 +734,16 @@ def _run_slice(label, cfg, per_step, per_val_batch=None, n_validations=0):
     if len(validations) != n_validations:
         raise AssertionError(f"{label}: {len(validations)} validations, {n_validations} asked")
     best = -math.inf
+    segments = cfg["training"].get("segmentation_lambda", 1.0) > 0
     for val in validations:
-        best = max(best, val["Mean IoU"])
-        if not (0 <= val["Mean IoU"] <= 1 and val["best_iou"] == best
-                and len([k for k in val if k.startswith("depth/")]) == 7):
+        best = max(best, val.get("Mean IoU", 0.0))
+        if not ((0 <= val["Mean IoU"] <= 1) if segments else "Mean IoU" not in val) \
+                or val["best_iou"] != best \
+                or len([k for k in val if k.startswith("depth/")]) != 7:
             raise AssertionError(f"{label}: validation record {val}")
+    if validations:
+        print(f"[{label}] validation time per batch: " + ", ".join(
+            f"{v['eval_seconds_per_batch']:.4f} s" for v in validations))
     expect = {k: v * n_steps for k, v in per_step.items()}
     if n_validations:
         vcfg = cfg["training"]
@@ -606,7 +752,7 @@ def _run_slice(label, cfg, per_step, per_val_batch=None, n_validations=0):
         expect = {k: v + per_val_batch[k] * batches * n_validations for k, v in expect.items()}
     if launches != expect:
         raise AssertionError(f"{label}: kernel launches {launches}, expected {expect}")
-    return launches
+    return launches, records
 
 
 def _eval_step_once(label, cfg_name):
@@ -655,22 +801,22 @@ def phase_slices():
     # launch per source frame (identity loss) in every step
     launches = {"sde_supervised": _run_slice(
         "slice sde", _packaged_cfg("sde_supervised_synthetic.yml"),
-        {"warp": 2, "reprojection": 2, "reprojection_grad": 0})}
+        {"warp": 2, "reprojection": 2, "reprojection_grad": 0})[0]}
     # exp-212: two photometric passes (labeled, unlabeled) per step, each one
     # K1 launch per source frame, one K2 launch per source frame for the
     # identity error and one for the pred error of all 4 scales, and one K3
     # launch per source frame in the backward
     cfg = _packaged_cfg("exp212_pad_online_synthetic.yml")
     launches["exp212_pad_online"] = _run_slice(
-        "slice exp212", cfg, {"warp": 4, "reprojection": 8, "reprojection_grad": 4})
+        "slice exp212", cfg, {"warp": 4, "reprojection": 8, "reprojection_grad": 4})[0]
     cfg = _packaged_cfg("exp212_pad_online_synthetic.yml")
     cfg["training"]["fused_reprojection"] = False
     launches["exp212_pad_online_unfused"] = _run_slice(
-        "slice exp212 unfused", cfg, {"warp": 4, "reprojection": 4, "reprojection_grad": 0})
+        "slice exp212 unfused", cfg, {"warp": 4, "reprojection": 4, "reprojection_grad": 0})[0]
     # exp-210: a segmentation-only model, no photometric loss, no kernel
     launches["exp210_depthcomp"] = _run_slice(
         "slice exp210", _packaged_cfg("exp210_depthcomp_synthetic.yml"),
-        {"warp": 0, "reprojection": 0, "reprojection_grad": 0})
+        {"warp": 0, "reprojection": 0, "reprojection_grad": 0})[0]
     # validation: exp-212's 3 steps as above, validated after steps 2 and 3
     # over 2 batches of 4; each batch warps each source frame once (K1) and
     # takes its identity and pred errors through K2, without a backward
@@ -679,7 +825,7 @@ def phase_slices():
     cfg["data"]["n_samples"] = 8
     launches["exp212_pad_online_validated"] = _run_slice(
         "eval exp212", cfg, {"warp": 4, "reprojection": 8, "reprojection_grad": 4},
-        per_val_batch={"warp": 2, "reprojection": 4, "reprojection_grad": 0}, n_validations=2)
+        per_val_batch={"warp": 2, "reprojection": 4, "reprojection_grad": 0}, n_validations=2)[0]
     launches["sde_supervised_eval_step"] = _eval_step_once(
         "eval step sde", "sde_supervised_synthetic.yml")
     launches["exp212_pad_online_eval_step"] = _eval_step_once(
@@ -687,12 +833,156 @@ def phase_slices():
     return launches
 
 
+def _torchvision_resnet(depth, seed):
+    """Seeded stand-in ImageNet weights in torchvision's ResNet layout (keys
+    without the `encoder.` prefix, the `fc` head included)."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = ResNetEncoder(depth).encoder.state_dict()
+    for k, v in sd.items():
+        if v.is_floating_point():  # running variances around 1, the rest small
+            v.copy_(torch.randn(v.shape, generator=gen) * 0.02 + (1.0 if "var" in k else 0.0))
+    width = 512 if depth < 50 else 2048
+    sd["fc.weight"] = torch.randn((1000, width), generator=gen) * 0.01
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+SDE_PER_STEP = {"warp": 2, "reprojection": 2, "reprojection_grad": 0}
+SDE_PER_VAL_BATCH = {"warp": 2, "reprojection": 4, "reprojection_grad": 0}
+
+
+def _count_launches(fn):
+    _reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return _read_launches()
+
+
+def _sde_extras(label, run):
+    """One more train step and one validation batch, each counted alone, the
+    optimizer update's device time (profiler), and the ImageNet encoder's
+    forward time (CUDA events, median of 10) where the model has one."""
+    batch, _ = run.batches(100)
+    per_step = _count_launches(lambda: run.step(batch, None))
+    val_batch = next(run.val_batches())
+    gen = torch.Generator(device="cuda:0").manual_seed(0)
+    per_val = _count_launches(lambda: train_steps.eval_step(run.model, val_batch, run.step_cfg,
+                                                            generator=gen))
+    print(f"[{label}] launches of one train step {per_step}, of one validation batch "
+          f"{per_val}")
+    # the optimizer's update alone, on the gradients the step left
+    opt_ms, opt_kernels, _ = _device_ms(run.optimizer.step, reps=3)
+    params = [p for g in run.optimizer.groups for p in g["params"]]
+    n = sum(p.numel() for p in params)
+    # one pass of Adam reads p, g, mu, nu and writes p, mu, nu: 28 bytes each
+    print(f"[{label}] {type(run.optimizer).__name__} update: device {opt_ms:.3f} ms, "
+          f"{opt_kernels:g} kernels per step, over {n} parameters in {len(params)} "
+          f"tensors (one fused pass: {28 * n / HBM_BYTES_PER_S * 1e3:.3f} ms of bytes)")
+    if per_step != SDE_PER_STEP or per_val != SDE_PER_VAL_BATCH:
+        raise AssertionError(f"{label}: launches {per_step}, {per_val}")
+    if "imnet_encoder" in run.model.models:
+        img = batch["color_aug_0_0"]
+        encoder = run.model.models["imnet_encoder"]
+        for amp in (True, False):
+            with torch.no_grad(), torch.autocast("cuda", torch.bfloat16, enabled=amp):
+                ms = _time_ms(lambda: encoder(img), reps=10)
+            print(f"[{label}] ImageNet encoder forward, batch {img.shape[0]} at "
+                  f"{tuple(img.shape[2:])}, {'bf16 autocast' if amp else 'f32'}: {ms:.3f} ms")
+
+
+def phase_sde_pretrain():
+    """SDE pretraining dec5 -> dec6 through train_main, from seeded stand-in
+    weights in a temporary SDT_MODEL_DIR (see the module docstring)."""
+    saved_env = {k: os.environ.get(k) for k in ("SDT_MODEL_DIR", "SDT_OUT_DIR")}
+    model_dir = tempfile.mkdtemp(prefix="sde_models_")
+    out_dir = tempfile.mkdtemp(prefix="sde_out_")
+    os.environ.update(SDT_MODEL_DIR=model_dir, SDT_OUT_DIR=out_dir)
+    launches = {}
+    try:
+        imnet = Path(model_dir) / "imnet"
+        imnet.mkdir()
+        tv101, tv18 = _torchvision_resnet(101, 1), _torchvision_resnet(18, 2)
+        torch.save(tv101, imnet / "resnet101.pth")
+        torch.save(tv18, imnet / "resnet18.pth")
+        # dec5's pose source: a ResNet-18 in the reference encoder layout with
+        # the one-frame conv1 (loaded through the two-frame adaptation), and a
+        # seeded pose decoder
+        pose_src = Path(model_dir) / "mono_cityscapes_1024x512_r101dil_aspp_dec5"
+        pose_src.mkdir()
+        torch.save({"encoder." + k: v for k, v in tv18.items() if not k.startswith("fc.")},
+                   pose_src / "pose_encoder.pth")
+        torch.manual_seed(3)
+        torch.save(PoseDecoder(num_ch_enc(18), 1, 2).state_dict(), pose_src / "pose.pth")
+        print(f"[sde_pretrain] stand-in weights (seeded, random) in {model_dir}: "
+              f"{sorted(str(p.relative_to(model_dir)) for p in Path(model_dir).rglob('*.pth'))}")
+
+        cfg5 = _packaged_cfg("sde_dec5_crop_synthetic.yml")
+        run5 = trainer.build_run(cfg5, "cuda:0")
+        enc0 = {k: v.detach().cpu().clone()
+                for k, v in run5.model.models["encoder"].state_dict().items()}
+        conv1 = run5.model.models["pose_encoder"].encoder.conv1.weight.detach().cpu()
+        if not torch.equal(conv1, torch.cat([tv18["conv1.weight"]] * 2, dim=1) / 2):
+            raise AssertionError("dec5: the pose encoder's conv1 is not the ResNet-18's "
+                                 "repeated over two frames and halved")
+        launches["sde_dec5_crop"] = _run_slice("slice sde_dec5", cfg5, SDE_PER_STEP,
+                                               SDE_PER_VAL_BATCH, n_validations=2, run=run5)[0]
+        enc = {k: v.detach().cpu() for k, v in run5.model.models["encoder"].state_dict().items()}
+        params = {k for k, _ in run5.model.models["encoder"].named_parameters()}
+        frozen = all(torch.equal(enc[k], tv101[k[len("encoder."):]]) for k in params)
+        moved = sum(not torch.equal(enc[k], enc0[k]) for k in enc if "running" in k)
+        n_stats = sum("running" in k for k in enc)
+        print(f"[slice sde_dec5] encoder after 3 steps: {len(params)} parameters equal to "
+              f"imnet/resnet101.pth bit for bit: {frozen}; running statistics moved: "
+              f"{moved} of {n_stats}")
+        if not (frozen and moved == n_stats):
+            raise AssertionError("dec5: the frozen encoder moved or its statistics did not")
+        _sde_extras("slice sde_dec5", run5)
+        export = Path(cfg5["training"]["log_path"])
+        checkpoints.save_component(str(export), run5.model, "encoder")
+        print(f"[sde_pretrain] wrote the dec5 run's encoder to {export.name}/encoder.pth with "
+              f"checkpoints.save_component: the frozen ImageNet encoder, which the published "
+              f"dec5 checkpoint ships (the dec5 export leaves it out under freeze_backbone)")
+        del run5
+        torch.cuda.empty_cache()
+
+        cfg6 = _packaged_cfg("sde_dec6_crop_synthetic.yml")
+        run6 = trainer.build_run(cfg6, "cuda:0")
+        for name in ("encoder", "depth", "pose_encoder", "pose"):
+            exported = torch.load(export / f"{name}.pth", map_location="cpu", weights_only=True)
+            loaded = run6.model.models[name].state_dict()
+            if not all(torch.equal(loaded[k].cpu(), v) for k, v in exported.items()):
+                raise AssertionError(f"dec6: {name} differs from the dec5 export")
+        print("[slice sde_dec6] encoder, depth, pose_encoder and pose equal the dec5 "
+              f"exports; amp {run6.model.amp}, photometric chain {run6.step_cfg.photometric_dtype}")
+        launches["sde_dec6_crop_amp"], records = _run_slice(
+            "slice sde_dec6 amp", cfg6, SDE_PER_STEP, SDE_PER_VAL_BATCH, n_validations=2,
+            run=run6)
+        feat = [r["feat_dist_loss"] for r in records]
+        print(f"[slice sde_dec6 amp] feat_dist_loss per step: {feat}")
+        if not (all(math.isfinite(f) and f > 0 for f in feat) and len(set(feat)) == len(feat)):
+            raise AssertionError(f"dec6: feat_dist_loss {feat}")
+        _sde_extras("slice sde_dec6 amp", run6)
+        del run6
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return launches
+
+
 def main():
+    t0 = time.perf_counter()
     phase_device()
     phase_build()
     records = phase_kernels()
     phase_small_steps()
     launches = phase_slices()
+    launches.update(phase_sde_pretrain())
     main_path = launches["exp212_pad_online"]
     pkg = Path(PKG)
     kernels = []
@@ -705,6 +995,7 @@ def main():
                         "replaces": replaces, "launches": main_path[key],
                         "launches_by_path": {p: c[key] for p, c in launches.items()},
                         **records[key]})
+    print(f"[smoke] total wall time {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

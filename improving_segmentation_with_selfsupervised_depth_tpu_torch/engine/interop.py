@@ -15,8 +15,6 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from .. import not_ported
-
 _DISP_SCALES = (0, 1, 2, 3)  # the reference decoder's dispconv slots
 
 
@@ -125,13 +123,12 @@ def state_dict_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any],
                         model_cfg: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax (params, batch_stats) of the joint model -> the port's state_dict."""
     unknown = set(params) - {"encoder", "pose_encoder", "pose", "depth", "segmentation",
-                             "mtl_decoder"}
+                             "mtl_decoder", "imnet_encoder"}
     if unknown:
-        raise not_ported(f"converting JAX submodules {sorted(unknown)}",
-                         "SDE pretraining, phase 2")
+        raise ValueError(f"unknown JAX submodules {sorted(unknown)}")
     depth_args = dict(model_cfg.get("depth_args") or {})
     sd: Dict[str, torch.Tensor] = {}
-    for enc in ("encoder", "pose_encoder"):
+    for enc in ("encoder", "pose_encoder", "imnet_encoder"):
         if enc in params:
             _resnet(sd, f"models.{enc}.encoder.", params[enc], batch_stats[enc])
     if "pose" in params:

@@ -5,6 +5,9 @@ configurations:
 - supervised (the `sde` step): one train-mode forward (BatchNorm running
   statistics update in it), the photometric loss through K1/K2 (and K3 with
   `fused_pred_loss`), the CE loss, one backward and one optimizer step;
+  SDE pretraining is this step with `segmentation_lambda` 0 and, in phase 2
+  (dec6), the feature-distance loss `feat_dist_lambda * ||enc - imnet||_2`
+  added to the photometric one;
 - semi-supervised with an EMA teacher and online-depth DepthMix (the `s212`
   step, JAX :233-435): the teacher's soft pseudo-labels on the unlabeled
   batch, the labeled forward with its photometric and CE losses, the
@@ -69,6 +72,7 @@ class StepConfig:
     """The fields of the JAX `StepConfig` that the ported steps read."""
 
     monodepth_lambda: float = 0.0
+    feat_dist_lambda: float = 0.0
     pseudo_depth_lambda: float = 0.0
     segmentation_lambda: float = 1.0
     pseudo_depth_loss_log: bool = False
@@ -83,7 +87,7 @@ class StepConfig:
     avg_reprojection: bool = False
     disable_automasking: bool = False
     # SSIM/L1 chain compute dtype of the unfused gradient path (bf16 in the
-    # sde step)
+    # sde step and under training.amp)
     photometric_dtype: Optional[torch.dtype] = None
     # the per-scale pred error through K2 forward and K3 backward
     # (training.fused_reprojection)
@@ -149,6 +153,13 @@ def _monodepth_loss(cfg: StepConfig, batch, outputs, generator, tie_break_noise)
         fused_pred=cfg.fused_pred_loss, pred_dtype=cfg.photometric_dtype,
         generator=generator, tie_break_noise=tie_break_noise)
     return cfg.monodepth_lambda * losses["loss"]
+
+
+def _feat_dist(outputs) -> torch.Tensor:
+    """The L2 distance of the backbone's last feature from the ImageNet
+    encoder's, in f32 (JAX train_steps.py:331-335)."""
+    d = outputs["encoder_features"].float() - outputs["imnet_features"].float()
+    return torch.sqrt(torch.sum(d * d))
 
 
 def _pseudo_depth_loss(cfg: StepConfig, disp0: torch.Tensor, pseudo_depth: torch.Tensor):
@@ -264,9 +275,11 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
 
     zero = torch.zeros((), device=batch["lbl"].device)
     outputs = model(batch)
-    mono_loss = zero
+    mono_loss = feat_dist_loss = zero
     if cfg.monodepth_lambda > 0:
         mono_loss = _monodepth_loss(cfg, batch, outputs, generator, tie_break_noise)
+        if cfg.feat_dist_lambda > 0:
+            feat_dist_loss = cfg.feat_dist_lambda * _feat_dist(outputs)
     pseudo_depth_loss = zero
     if cfg.pseudo_depth_lambda > 0:
         pseudo_depth_loss = cfg.pseudo_depth_lambda * _pseudo_depth_loss(
@@ -274,7 +287,7 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
     seg_loss = zero
     if cfg.segmentation_lambda > 0:
         seg_loss = _segmentation_loss(cfg, outputs, batch["lbl"])
-    seg_total, mono_total = seg_loss, mono_loss
+    seg_total, mono_total = seg_loss, mono_loss + feat_dist_loss
 
     metrics = {}
     if semi:
@@ -318,9 +331,9 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
     optimizer.step()
     if cfg.use_ema:
         update_ema(teacher, model, step, EMA_ALPHA, cfg.ema_names)
-    # the ImageNet encoder's feature-distance loss is not ported: always 0
     metrics.update({"segmentation_loss": seg_loss.detach(), "mono_loss": mono_loss.detach(),
-                    "pseudo_depth_loss": pseudo_depth_loss.detach(), "feat_dist_loss": zero,
+                    "pseudo_depth_loss": pseudo_depth_loss.detach(),
+                    "feat_dist_loss": feat_dist_loss.detach(),
                     "segmentation_total_loss": seg_total.detach(),
                     "mono_total_loss": mono_total.detach(), "total_loss": total.detach()})
     return metrics
@@ -394,11 +407,6 @@ def step_config_from_cfg(cfg: Dict[str, Any]) -> StepConfig:
     mono = dict(cfg.get("monodepth_options", {}))
     mono.update(t.get("monodepth_loss") or {})
     u = t.get("unlabeled_segmentation") or {}
-    if t.get("amp", False):
-        raise not_ported("training.amp (bf16 model)", "amp/bf16 model")
-    if t.get("feat_dist_lambda", 0.0):
-        raise not_ported("training.feat_dist_lambda (ImageNet encoder)",
-                         "SDE pretraining, phase 2")
     if t.get("fuse_unlabeled_forward", False):
         raise not_ported("training.fuse_unlabeled_forward", "exp-212 options")
     if u.get("debug_images", u.get("debug_image", False)):
@@ -406,12 +414,14 @@ def step_config_from_cfg(cfg: Dict[str, Any]) -> StepConfig:
     if t.get("pred_layout", "pack") != "pack" or t.get("remat_photometric", False):
         raise not_ported("training.pred_layout other than 'pack' / remat_photometric",
                          "amp/bf16 model")
-    dtype_name = t.get("photometric_dtype")
+    # under amp the chain is bf16, as in the JAX package
+    dtype_name = "bfloat16" if t.get("amp", False) else t.get("photometric_dtype")
     if dtype_name not in _PHOTOMETRIC_DTYPES:
         raise ValueError(f"training.photometric_dtype {dtype_name!r}: bfloat16 or null")
     fg_thr = u.get("depthcomp_foreground_threshold", 0.0)
     return StepConfig(
         monodepth_lambda=t.get("monodepth_lambda", 0.0),
+        feat_dist_lambda=t.get("feat_dist_lambda", 0.0),
         pseudo_depth_lambda=t.get("pseudo_depth_lambda", 0.0),
         segmentation_lambda=t.get("segmentation_lambda", 1.0),
         pseudo_depth_loss_log=t.get("pseudo_depth_loss_log", False),

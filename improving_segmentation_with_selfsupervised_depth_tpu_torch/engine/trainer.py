@@ -10,8 +10,15 @@ synthetic`, and runs `training.train_iters` steps of
 `engine/train_steps.py::eval_step`) after every interval's last step and
 after the last step, over `data.n_samples` synthetic images (default 16) in
 batches of `training.val_batch_size`, made from fixed seeds, and keeps the
-mIoU, the frequency-weighted accuracy and the best mIoU. What the port does
-not run yet raises NotImplementedError naming its ROADMAP item.
+mIoU, the frequency-weighted accuracy and the best mIoU (a model without a
+segmentation head reports the depth metrics and no mIoU). Before the
+optimizer is built, `engine/checkpoints.py::apply_pretraining` loads the
+weights that `model.*_pretraining` and `enable_imnet_encoder` name from the
+`DOWNLOAD_MODEL_DIR` (`SDT_MODEL_DIR`, `config/machine.py`); after the last
+step, `training.save_separate_monodepth_models` exports the SDE components
+to `training.log_path` (the encoder unless `freeze_backbone`). With
+`training.amp` the model computes in bf16 (`models/joint.py`). What the port
+does not run yet raises NotImplementedError naming its ROADMAP item.
 `training.disable_depth_estimator` is accepted and, as in the JAX package,
 read by nothing.
 """
@@ -20,15 +27,18 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Any, Dict, List, Optional
 
 import torch
 
 from .. import not_ported
+from ..config.machine import expand_cfg_vars, machine_paths
 from ..data.synthetic import make_synthetic_batch, to_device_batch
 from ..models.joint import build_model
 from ..ops.metrics import AverageMeterDict, RunningScore
+from .checkpoints import apply_pretraining, save_monodepth_models
 from .optim import build_optimizer
 from .state import make_teacher
 from .train_steps import eval_step, step_config_from_cfg, train_step
@@ -48,12 +58,12 @@ def _check_supported(cfg: Dict[str, Any]) -> None:
                          "trainer I/O")
     if training.get("early_stopping"):
         raise not_ported("training.early_stopping", "trainer I/O")
-    for key in ("save_model", "save_separate_monodepth_models", "resume", "auto_resume"):
+    for key in ("save_model", "resume", "auto_resume"):
         if training.get(key):
-            raise not_ported(f"training.{key} (checkpoints)", "trainer I/O")
-    for key in ("backbone_pretraining", "depth_pretraining", "pose_pretraining"):
-        if cfg["model"].get(key, "none") not in (None, "none"):
-            raise not_ported(f"model.{key} (pretrained weights)", "trainer I/O")
+            raise not_ported(f"training.{key} (full-state checkpoints)", "trainer I/O")
+    if training.get("save_separate_monodepth_models") and training.get("save_monodepth_ema"):
+        raise not_ported("training.save_monodepth_ema (exporting the EMA teacher)",
+                         "trainer I/O")
 
 
 def current_val_interval(cfg: Dict[str, Any], step: int) -> int:
@@ -153,7 +163,10 @@ class Run:
 
 
 def build_run(cfg: Dict[str, Any], device: str = "cuda:0") -> Run:
-    """Check the config and build its run on `device`."""
+    """Check the config and build its run on `device`: expands the config's
+    `MachineConfig.X` paths in place and loads the pretrained weights."""
+    paths = machine_paths()
+    expand_cfg_vars(cfg, paths)
     mono = cfg.get("monodepth_options", {})
     for section in ("data", "model"):  # shared options (reference train.py:156-160)
         cfg.setdefault(section, {})
@@ -166,7 +179,9 @@ def build_run(cfg: Dict[str, Any], device: str = "cuda:0") -> Run:
     step_cfg = step_config_from_cfg(cfg)
     n_classes = cfg["data"].get("n_classes", 19)
     batch_size = training["batch_size"]
-    model = build_model(cfg["model"], n_classes).to(device)
+    model = build_model(cfg["model"], n_classes, amp=training.get("amp", False))
+    apply_pretraining(model, cfg["model"], paths["DOWNLOAD_MODEL_DIR"])
+    model = model.to(device)
     return Run(model=model, teacher=make_teacher(model) if step_cfg.use_ema else None,
                optimizer=build_optimizer(training, cfg["model"], model), step_cfg=step_cfg,
                generator=torch.Generator(device=device).manual_seed(seed), device=device,
@@ -178,15 +193,18 @@ def build_run(cfg: Dict[str, Any], device: str = "cuda:0") -> Run:
                n_val_samples=cfg["data"].get("n_samples", 16))
 
 
-def train_main(cfg: Dict[str, Any], device: str = "cuda:0") -> List[Dict[str, float]]:
-    """Train the config's model for `training.train_iters` steps.
+def train_main(cfg: Dict[str, Any], device: str = "cuda:0",
+               run: Optional[Run] = None) -> List[Dict[str, float]]:
+    """Train the config's model for `training.train_iters` steps, on `run`
+    (as `build_run(cfg, device)` makes it) or on a new one.
 
     Returns one record per step: its losses, `step_seconds` (host clock from
     the step's start to its losses on the host, which waits for the device)
     and `data_seconds` (making and moving the batch); after a validation also
     its record (`Run.validate`) under keys prefixed `val/`.
     """
-    run = build_run(cfg, device)
+    if run is None:
+        run = build_run(cfg, device)
     training = cfg["training"]
     print_interval = training.get("print_interval", 100)
     logger.info("training %s on %s: batch %d at %dx%d, %d steps",
@@ -215,4 +233,10 @@ def train_main(cfg: Dict[str, Any], device: str = "cuda:0") -> List[Dict[str, fl
             record.update({f"val/{k}": v for k, v in val.items()})
             logger.info("Validation @%d: mIoU=%.4f  best %.4f  %.3f s per batch", step + 1,
                         run.mIoU, run.best_iou, val["eval_seconds_per_batch"])
+    if training.get("save_separate_monodepth_models", False):
+        # component export for the SDE transfer chain (reference train.py:377-390)
+        log_path = training.get("log_path") or os.path.join(machine_paths()["LOG_DIR"], "run")
+        save_monodepth_models(log_path, run.model,
+                              include_encoder=not cfg["model"].get("freeze_backbone", False))
+        logger.info("SDE components exported to %s", log_path)
     return records

@@ -14,7 +14,8 @@ Partial execution (the PAD decoder splices attention between two halves,
 JAX depth_decoder.py:57-64): `exec_layer` lists the stages to run, and `x`
 replaces the bottleneck as the input of the first of them.
 
-Outputs: "upconv_{i}" per executed stage and "disp_{s}" (N, 1, H/2^s, W/2^s).
+Outputs: "upconv_{i}" per executed stage and "disp_{s}" (N, 1, H/2^s, W/2^s),
+always f32.
 """
 
 from __future__ import annotations
@@ -79,5 +80,6 @@ class DepthDecoder(nn.Module):
             x = self._m("upconv", i, 1)(x)
             outputs[f"upconv_{i}"] = x
             if i in self.scales and self.enable_disparity:
-                outputs[f"disp_{i}"] = torch.sigmoid(self._m("dispconv", i)(x))
+                # the sigmoid in f32 under autocast, as JAX's
+                outputs[f"disp_{i}"] = torch.sigmoid(self._m("dispconv", i)(x).float())
         return outputs

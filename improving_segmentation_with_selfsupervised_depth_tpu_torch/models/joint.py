@@ -11,14 +11,25 @@ the reference checkpoint's (engine/full_model_interop.py:10-21):
   models.mtl_decoder    PAD (segmentation_name: mtl_pad)
   models.pose_encoder   ResNetEncoder(depth 18, num_input_images=2)
   models.pose           PoseDecoder
+  models.imnet_encoder  the frozen ImageNet ResNet of the feature-distance
+                        loss (`enable_imnet_encoder`)
 
 Forward takes the batch dict (see ops/photometric.py) and returns "bottleneck",
 "disp_{s}", "semantics" (N, classes, H, W), with PAD "intermediate_semantics",
-and, unless `use_pose=False`, "axisangle_0_{f}", "translation_0_{f}"
-(N, 2, 1, 3) and "cam_T_cam_0_{f}" (N, 4, 4). Train or eval mode is the
-module's own (`model.train()` / `model.eval()`); with `freeze_backbone_bn`
-the encoder stays in eval mode, so its BatchNorm normalizes with its running
-statistics and leaves them unchanged (the JAX `train_encoder_bn=False`).
+with the ImageNet encoder "encoder_features" (the backbone's last feature)
+and "imnet_features" (the ImageNet encoder's, without gradient), and, unless
+`use_pose=False`, "axisangle_0_{f}", "translation_0_{f}" (N, 2, 1, 3) and
+"cam_T_cam_0_{f}" (N, 4, 4). Train or eval mode is the module's own
+(`model.train()` / `model.eval()`); with `freeze_backbone_bn` the encoder
+stays in eval mode, so its BatchNorm normalizes with its running statistics
+and leaves them unchanged (the JAX `train_encoder_bn=False`). The ImageNet
+encoder is always in eval mode.
+
+With `amp` (the JAX model's `dtype=bfloat16`, `training.amp`) the networks
+run under `torch.autocast(..., torch.bfloat16)`: convolutions in bf16 on f32
+parameters, BatchNorm statistics in f32 (`layers.BatchNorm2d`). The
+disparities and the poses come out in f32, as JAX's do, and the pose
+geometry (`cam_T_cam`) runs outside autocast, in f32.
 """
 
 from __future__ import annotations
@@ -47,13 +58,15 @@ class JointSegmentationDepth(nn.Module):
                  depth_args=None, num_classes: int = 19, frame_ids=(0, -1, 1),
                  num_scales: int = 4, pose_pair_batching: bool = True,
                  disable_monodepth: bool = False, disable_pose: bool = False,
-                 freeze_backbone_bn: bool = False):
+                 freeze_backbone_bn: bool = False, enable_imnet_encoder: bool = False,
+                 imnet_encoder_dilation: bool = True, amp: bool = False):
         super().__init__()
         if frame_ids[0] != 0 or "s" in frame_ids:
             raise ValueError(f"frame_ids must start with 0 and hold no stereo 's': {frame_ids}")
         self.frame_ids = tuple(frame_ids)
         self.pose_pair_batching = pose_pair_batching
         self.freeze_backbone_bn = freeze_backbone_bn
+        self.amp = amp
         self.use_pose_net = not disable_pose and not disable_monodepth and len(frame_ids) > 1
         ch_enc = num_ch_enc(backbone_depth)
         depth_args = dict(depth_args or {})
@@ -72,6 +85,10 @@ class JointSegmentationDepth(nn.Module):
         if self.use_pose_net:
             models["pose_encoder"] = ResNetEncoder(18, num_input_images=2)
             models["pose"] = PoseDecoder(num_ch_enc(18), 1, 2)
+        if enable_imnet_encoder:
+            models["imnet_encoder"] = ResNetEncoder(
+                backbone_depth, replace_stride_with_dilation=(
+                    replace_stride_with_dilation if imnet_encoder_dilation else None))
         self.models = nn.ModuleDict(models)
         init_weights(self)
 
@@ -79,7 +96,13 @@ class JointSegmentationDepth(nn.Module):
         super().train(mode)
         if self.freeze_backbone_bn:
             self.models["encoder"].train(False)
+        if "imnet_encoder" in self.models:
+            self.models["imnet_encoder"].train(False)
         return self
+
+    def _autocast(self, x: torch.Tensor):
+        """bf16 autocast on `x`'s device under `amp`, else a no-op."""
+        return torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=self.amp)
 
     def predict_poses(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """Pairwise poses in temporal order, inverted for past frames
@@ -92,14 +115,15 @@ class JointSegmentationDepth(nn.Module):
         pair_inputs = {f: torch.cat([feats[f], feats[0]] if f < 0 else [feats[0], feats[f]],
                                     dim=1) for f in pair_frames}
         encoder, pose = self.models["pose_encoder"], self.models["pose"]
-        if self.pose_pair_batching and len(pair_frames) > 1:
-            n = feats[0].shape[0]
-            axisangle, translation = pose([encoder(torch.cat(
-                [pair_inputs[f] for f in pair_frames], dim=0))])
-            per_pair = {f: (axisangle[i * n:(i + 1) * n], translation[i * n:(i + 1) * n])
-                        for i, f in enumerate(pair_frames)}
-        else:
-            per_pair = {f: pose([encoder(pair_inputs[f])]) for f in pair_frames}
+        with self._autocast(feats[0]):
+            if self.pose_pair_batching and len(pair_frames) > 1:
+                n = feats[0].shape[0]
+                axisangle, translation = pose([encoder(torch.cat(
+                    [pair_inputs[f] for f in pair_frames], dim=0))])
+                per_pair = {f: (axisangle[i * n:(i + 1) * n], translation[i * n:(i + 1) * n])
+                            for i, f in enumerate(pair_frames)}
+            else:
+                per_pair = {f: pose([encoder(pair_inputs[f])]) for f in pair_frames}
         for f in pair_frames:
             axisangle, translation = per_pair[f]
             outputs[key_of("axisangle", 0, f)] = axisangle
@@ -110,14 +134,20 @@ class JointSegmentationDepth(nn.Module):
 
     def forward(self, inputs: Dict[str, torch.Tensor], use_pose: bool = True
                 ) -> Dict[str, torch.Tensor]:
-        features = self.models["encoder"](inputs[key_of("color_aug", 0, 0)])
-        outputs = {"bottleneck": features[-1]}
-        if "mtl_decoder" in self.models:
-            outputs.update(self.models["mtl_decoder"](features))
-        if "depth" in self.models:
-            outputs.update(self.models["depth"](features))
-        if "segmentation" in self.models:
-            outputs["semantics"] = self.models["segmentation"](features)
+        image = inputs[key_of("color_aug", 0, 0)]
+        with self._autocast(image):
+            features = self.models["encoder"](image)
+            outputs = {"bottleneck": features[-1]}
+            if "mtl_decoder" in self.models:
+                outputs.update(self.models["mtl_decoder"](features))
+            if "depth" in self.models:
+                outputs.update(self.models["depth"](features))
+            if "segmentation" in self.models:
+                outputs["semantics"] = self.models["segmentation"](features)
+            if "imnet_encoder" in self.models:
+                outputs["encoder_features"] = features[-1]
+                with torch.no_grad():
+                    outputs["imnet_features"] = self.models["imnet_encoder"](image)[-1]
         if self.use_pose_net and use_pose:
             outputs.update(self.predict_poses(inputs))
         return outputs
@@ -126,24 +156,25 @@ class JointSegmentationDepth(nn.Module):
         """The pose-free depth forward on the un-augmented `color_0_0`
         (reference joint_segmentation_depth.py:72-75): the depth decoder's
         outputs, or all of PAD's."""
-        features = self.models["encoder"](inputs[key_of("color", 0, 0)])
-        if "mtl_decoder" in self.models:
-            return self.models["mtl_decoder"](features)
-        return self.models["depth"](features)
+        image = inputs[key_of("color", 0, 0)]
+        with self._autocast(image):
+            features = self.models["encoder"](image)
+            if "mtl_decoder" in self.models:
+                return self.models["mtl_decoder"](features)
+            return self.models["depth"](features)
 
 
-def build_model(model_cfg: Dict[str, Any], n_classes: int) -> JointSegmentationDepth:
-    """Config-dict factory with the JAX package's `build_model` schema."""
+def build_model(model_cfg: Dict[str, Any], n_classes: int,
+                amp: bool = False) -> JointSegmentationDepth:
+    """Config-dict factory with the JAX package's `build_model` schema;
+    `amp` is the JAX `dtype=bfloat16` (`training.amp`)."""
     m = dict(model_cfg)
-    if m.get("enable_imnet_encoder", False):
-        raise not_ported("model.enable_imnet_encoder (feature-distance loss)",
-                         "SDE pretraining, phase 2")
     if m.get("pose_model_input", "pairs") != "pairs":
         raise not_ported("model.pose_model_input other than 'pairs'", "exp-210 options")
     if m.get("provide_uncropped_for_pose", False):
         raise not_ported("model.provide_uncropped_for_pose", "exp-210 options")
     if m.get("remat", False):
-        raise not_ported("model.remat", "amp/bf16 model")
+        raise not_ported("model.remat", "amp/bf16 model: remat")
     rsd = m.get("replace_stride_with_dilation")
     depth_args = dict(m.get("depth_args") or {})
     depth_args.pop("max_scale_size", None)  # static shapes make it redundant
@@ -162,4 +193,7 @@ def build_model(model_cfg: Dict[str, Any], n_classes: int) -> JointSegmentationD
         disable_monodepth=m.get("disable_monodepth", False),
         disable_pose=m.get("disable_pose", False),
         freeze_backbone_bn=m.get("freeze_backbone_bn", False),
+        enable_imnet_encoder=m.get("enable_imnet_encoder", False),
+        imnet_encoder_dilation=m.get("imnet_encoder_dilation", True),
+        amp=amp,
     )

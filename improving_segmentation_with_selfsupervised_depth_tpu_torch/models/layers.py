@@ -20,7 +20,10 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     Train mode normalizes with the biased batch variance, as torch does, but
     also tracks the running variance with the biased batch variance, where
-    torch would use the unbiased one; momentum 0.1 here is Flax's 0.9.
+    torch would use the unbiased one; momentum 0.1 here is Flax's 0.9. The
+    tracked statistics are computed in f32 whatever the input's dtype (Flax
+    computes BatchNorm statistics in f32 under a bf16 `dtype`); the output
+    keeps the input's dtype.
     """
 
     def __init__(self, num_features: int):
@@ -31,7 +34,7 @@ class BatchNorm2d(nn.BatchNorm2d):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
             self.num_batches_tracked.add_(1)

@@ -43,6 +43,13 @@ def ssim_nchw(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
     3x3 average-pool windows over reflection-padded inputs (reference
     models/monodepth_layers.py:224-254).
+
+    In bf16 (the chain under amp) a window's variance can round below
+    -C2 / 2, so that the denominator is exactly 0: there the map takes the
+    formula's limit, the clip's bound (0 where the numerator is positive, 1
+    where it is negative), with no gradient. JAX's clip gives the same bound
+    but a NaN gradient (0 * inf); the port differs from it only there. In
+    f32 the map is the formula as JAX computes it, with no guard.
     """
     xp = F.pad(x, (1, 1, 1, 1), mode="reflect")
     yp = F.pad(y, (1, 1, 1, 1), mode="reflect")
@@ -53,7 +60,12 @@ def ssim_nchw(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     sigma_xy = _avg_pool3x3(xp * yp) - mu_x * mu_y
     ssim_n = (2 * mu_x * mu_y + SSIM_C1) * (2 * sigma_xy + SSIM_C2)
     ssim_d = (mu_x * mu_x + mu_y * mu_y + SSIM_C1) * (sigma_x + sigma_y + SSIM_C2)
-    return clip_jax((1.0 - ssim_n / ssim_d) * 0.5, 0.0, 1.0)
+    if ssim_d.dtype == torch.float32:
+        return clip_jax((1.0 - ssim_n / ssim_d) * 0.5, 0.0, 1.0)
+    zero = ssim_d == 0
+    ratio = ssim_n / torch.where(zero, torch.ones_like(ssim_d), ssim_d)
+    out = clip_jax((1.0 - ratio) * 0.5, 0.0, 1.0)
+    return torch.where(zero, (ssim_n < 0).to(out.dtype), out)
 
 
 def smoothness_loss(disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:

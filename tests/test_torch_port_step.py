@@ -177,15 +177,16 @@ def test_train_main_runs_the_exp212_config_shrunk():
 
 
 @pytest.mark.parametrize("section,key,value", [
-    ("training", "amp", True),
-    ("training", "feat_dist_lambda", 1.0),
+    ("model", "remat", True),
+    ("training", "optimizer", {"name": "adamax", "lr": 1e-3}),
     ("training", "early_stopping", {"patience": 5}),
     ("model", "pose_model_input", "all"),
     ("training", "fuse_unlabeled_forward", True),
     ("training", "unlabeled_segmentation", {"mix_mask": "depthcomp", "debug_images": True}),
     ("training", "save_model", True),
     ("data", "dataset", "cityscapes"),
-    ("model", "enable_imnet_encoder", True),
+    ("model", "freeze_pose", True),  # with the config's clip_grad_norm
+    ("training", "resume", "best_model.msgpack"),
 ])
 def test_what_the_slice_does_not_run_raises(section, key, value):
     from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine.trainer import (

@@ -9,8 +9,10 @@ Phases, each reported on its own lines:
   3. kernels: each kernel (K1 warp, K2 fused SSIM+L1 error, K3 its
      gradient) against its plain PyTorch version on the card, at the
      main-path shapes, at odd shapes and at the edges of K2/K3's tiles, with
-     times of both, of one PyTorch reference call where there is one (each
-     the median of one-call CUDA-event timings), and the least time the card
+     times (at the main path's batch-2 shapes, and at the synthetic
+     exp-212's batch 4) of both, of one PyTorch reference call where there
+     is one (each the median of one-call CUDA-event timings), and the least
+     time the card
      could take (bytes over its memory rate, or operations over its f32 rate);
      K1's and `F.grid_sample`'s device times (profiler) at K1's main shape,
      on per-pixel random and on smooth grids;
@@ -20,18 +22,19 @@ Phases, each reported on its own lines:
      exp-212 step on each device checks the EMA update at alpha 0.5; the
      exp-212 eval step on the card against the CPU;
   5. slices: the packaged configs through `train_main` (the trainer entry
-     point) at full width, counting kernel launches from 0 around each run:
-     `sde_supervised` (3 steps), `exp212_pad_online` with fused_reprojection
-     on (3 steps, the main path of training) and the same with it off,
-     `exp210_depthcomp` (3 steps, no kernel), and exp-212 validated after
-     steps 2 and 3 over 2 batches of 4 (the eval path: K1 and K2 per
-     batch); then the eval step alone at full width, for `sde_supervised`
-     and exp-212, with its launches, times and peak memory;
+     point; `train_iters` 4 runs 3 steps, as the JAX trainer counts) at full
+     width on the synthetic dataset through the threaded loaders, counting
+     kernel launches from 0 around each run: `sde_supervised`,
+     `exp212_pad_online` with fused_reprojection on and the same with it
+     off, `exp210_depthcomp` (no kernel), and exp-212 validated after steps
+     1 and 3 over 2 batches of 4 (the eval path: K1 and K2 per batch); then
+     the eval step alone at full width, for `sde_supervised` and exp-212,
+     with its launches, times and peak memory;
   6. sde_pretrain: SDE pretraining, phase 1 then phase 2, through
      `train_main` at full width (ResNet-101 dilated, dec6 + ASPP, ResNet-18
      pose, batch 4 at 512x512): seeded stand-in weights in the published
      `.pth` layouts are written into a temporary SDT_MODEL_DIR; dec5 (frozen
-     ImageNet backbone, Adam) runs 3 steps validated after steps 2 and 3 and
+     ImageNet backbone, Adam) runs 3 steps validated after steps 1 and 3 and
      exports its components; dec6 (bf16 amp, the ImageNet encoder and its
      feature distance) loads them and runs 3 steps the same way. Checks the
      frozen encoder bit for bit, its moving BatchNorm statistics, the pose
@@ -41,15 +44,35 @@ Phases, each reported on its own lines:
      forward time. The small-steps phase also holds a small dec6 step card
      vs CPU in f32 and in bf16 (amp, `torch.autocast` on both devices; the
      losses), and the bf16 backward of a smooth function of the dec6
-     model's outputs, card vs CPU, against the CPU's f32 backward.
-The line before the last is the kernels' JSON record; the last line is
-`{"ok": true, "device": {...}}`. Any failure raises, so the exit code is
+     model's outputs, card vs CPU, against the CPU's f32 backward;
+  7. cityscapes_exp212 (the main path): a generated tree in the Cityscapes
+     layout (16 train and 8 val frames: 1024x512 JPEGs at q98 with their
+     sequence neighbours, 2048x1024 label-id PNGs) read by the data layer;
+     `configs/exp212_pad_online_cityscapes.yml` through `train_main` at full
+     width: 4 steps of batch 2 + 2, validated at 512x1024 after steps 1, 3
+     and 4, best and last full-state checkpoints; then a second run with
+     `auto_resume` whose loaded state must equal the first run's last state
+     bit for bit and which must take exactly the remaining 2 steps. K1 and
+     K2 held against their plain versions at the validation shape. Prints
+     the package versions and cores, validation time per batch, the time the
+     loop waited for each validation's checkpoint save (best and last from
+     one host snapshot) and the last save's copy to the host and file
+     writes, peak memory and the launches per step and per validation
+     batch; then, on a larger tree (40 train frames, 20 labeled) whose
+     epochs each hold a window, the time per step in windows of 8 steps
+     between two syncs, in turns: fed by the loaders, from host batches the
+     loaders pinned beforehand (the copies and transposes alone, no loader
+     thread running) and from the same batches resident on the device, with
+     the time waiting on the loaders and issuing the copies.
+The last three lines are the card's name and power limit (as at the
+start), the kernels' JSON record and `{"ok": true, "device": {...}}`. Any failure raises, so the exit code is
 nonzero and no `ok` line is printed. There is no CPU fallback.
 """
 
 from __future__ import annotations
 
 import copy
+import importlib.metadata
 import importlib.util
 import json
 import math
@@ -63,6 +86,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import yaml
@@ -292,16 +316,62 @@ def _reprojection_inputs(n, reps, h, w, seed):
     return pred, target, g
 
 
+def _time_k1(img, grids, n, s, h, w):
+    """K1's times at one shape: the kernel, its plain version, the PyTorch
+    reference (`out` plane only) and the bound."""
+    ix, iy = (t.contiguous() for t in warp.unnormalize_grid(grids, h, w))
+    ms = _time_ms(lambda: warp.warp_bilinear_nchw(img, ix, iy, reps=s))
+    plain_ms = _time_ms(lambda: warp.warp_bilinear_nchw_plain(img, ix, iy, reps=s))
+    img_rep = img.repeat_interleave(s, 0)
+    lib_ms = _time_ms(lambda: F.grid_sample(img_rep, grids, mode="bilinear",
+                                            padding_mode="border", align_corners=True))
+    m = n * s
+    bound_ms, bound_by = _bound(4 * (n * 3 * h * w + 2 * m * h * w + 3 * m * 3 * h * w),
+                                m * h * w * (K1_OPS_PER_PIXEL + 3 * K1_OPS_PER_CHANNEL))
+    return {"shape": [n, 3, h, w], "reps": s, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}
+
+
+def _time_k2_k3(pred, target, g, n, reps, h, w):
+    """K2's times at one shape and, for the pred error (reps 4), K3's, with
+    autograd's backward of the plain chain as K3's PyTorch reference."""
+    m, px, f32 = n * reps, h * w, 4
+    ms = _time_ms(lambda: reprojection.reprojection_error(pred, target, reps))
+    plain_ms = _time_ms(lambda: reprojection.reprojection_error_plain(pred, target, reps))
+    bound_ms, bound_by = _bound(f32 * (m * 3 * px + n * 3 * px + m * px), m * 3 * px * K2_OPS)
+    k2 = {"shape": [m, 3, h, w], "reps": reps, "ms": ms, "plain_ms": plain_ms,
+          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    if reps == 1:
+        return k2, None
+    dms = _time_ms(lambda: reprojection.reprojection_error_grad(pred, target, g, reps))
+    dplain_ms = _time_ms(lambda: reprojection.reprojection_error_grad_plain(pred, target, g, reps))
+    leaf = pred.clone().requires_grad_()
+    chain = reprojection.reprojection_error_plain(leaf, target, reps)
+    lib_ms = _time_ms(lambda: torch.autograd.grad(chain, leaf, g, retain_graph=True))
+    del chain, leaf
+    dbound_ms, dbound_by = _bound(f32 * (2 * m * 3 * px + n * 3 * px + m * px),
+                                  m * 3 * px * K3_OPS)
+    k3 = {"shape": [m, 3, h, w], "reps": reps, "ms": dms, "plain_ms": dplain_ms,
+          "bound_ms": dbound_ms, "bound_by": dbound_by, "library_ms": lib_ms}
+    return k2, k3
+
+
 def phase_kernels():
-    """Each kernel against its plain version at every full-width shape the
-    sde and exp-212 paths give it (512^2, batch 8 and 4) and at odd shapes;
-    times at the exp-212 main-path shape (batch 4, 4 scales per frame)."""
+    """Each kernel against its plain version at every full-width training
+    shape the sde and exp-212 paths give it (512^2, batch 8, 4 and 2) and at
+    odd shapes (the Cityscapes validation shape: `_kernels_at_val_shape`);
+    times at the main path's shape (exp-212 on the Cityscapes tree: batch
+    2, 4 scales per frame), which the record's `ms`, `plain_ms`, `bound_ms`
+    and `library_ms` belong to, and under `exp212_synthetic_batch4` at the
+    synthetic exp-212 shape (batch 4) that earlier records were timed at."""
     records = {}
-    f32 = 4
+    b4 = "exp212_synthetic_batch4"
 
     # K1: one launch per source frame warps the frame at its 4 scale grids;
-    # exp-212 (batch 4, timed), sde (batch 8) and an odd shape
-    for i, (n, s, h, w) in enumerate(((4, 4, 512, 512), (8, 4, 512, 512), (2, 2, 37, 61))):
+    # the main path (batch 2, timed), synthetic exp-212 (batch 4, timed), sde
+    # (batch 8) and an odd shape
+    for i, (n, s, h, w) in enumerate(((2, 4, 512, 512), (4, 4, 512, 512), (8, 4, 512, 512),
+                                      (2, 2, 37, 61))):
         img, grids = _warp_inputs(n, s, h, w, seed=n * 1000 + h)
         ix, iy = warp.unnormalize_grid(grids, h, w)
         ix, iy = ix.contiguous(), iy.contiguous()
@@ -315,22 +385,17 @@ def phase_kernels():
             raise AssertionError(f"K1 disagrees with its plain version: {errs}")
         if i > 0:
             records["warp"]["max_abs_err"] = max(records["warp"]["max_abs_err"], *errs)
+        if i > 1:
             continue
-        ms = _time_ms(lambda: warp.warp_bilinear_nchw(img, ix, iy, reps=s))
-        plain_ms = _time_ms(lambda: warp.warp_bilinear_nchw_plain(img, ix, iy, reps=s))
-        # the PyTorch reference computes the `out` plane alone (no dfx/dfy)
-        img_rep = img.repeat_interleave(s, 0)
-        lib_ms = _time_ms(lambda: F.grid_sample(img_rep, grids, mode="bilinear",
-                                                padding_mode="border", align_corners=True))
-        m = n * s
-        bound_ms, bound_by = _bound(
-            f32 * (n * 3 * h * w + 2 * m * h * w + 3 * m * 3 * h * w),
-            m * h * w * (K1_OPS_PER_PIXEL + 3 * K1_OPS_PER_CHANNEL))
-        print(f"[kernels] K1 warp main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"F.grid_sample (out plane only, partial) {lib_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms ({bound_by})")
-        records["warp"] = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+        rec = _time_k1(img, grids, n, s, h, w)
+        print(f"[kernels] K1 warp {'main' if i == 0 else 'synthetic exp-212'} shape "
+              f"{(n, 3, h, w)} S={s}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+              f"ms, F.grid_sample (out plane only, partial) {rec['library_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        if i == 1:
+            records["warp"][b4] = rec
+            continue
+        records["warp"] = {"max_abs_err": max(errs), **rec,
                            "library_call": "F.grid_sample bilinear border, out plane only"}
         # the device alone (no host work), K1 and F.grid_sample by the same
         # profiler method, on these grids and on smooth ones
@@ -349,15 +414,17 @@ def phase_kernels():
                                     "library_device_ms" + suffix: lib_dev[0]})
 
     # K2 and K3: the per-scale pred error of one exp-212 source frame, its 4
-    # scales against one target (reps 4, timed); the identity errors of sde
-    # (batch 8) and exp-212 (batch 4, K2 timed) with reps 1; odd shapes with
-    # reps 1 and 2; the strips' edges (H not a multiple of the row tile, W
-    # odd and not a multiple of the strip, H and W of 2 and 3, where the
-    # folds of rows 0 and H+1 meet); more than 65,535 planes (21,846 x 3)
-    for i, (n, reps, h, w) in enumerate(((4, 4, 512, 512), (8, 1, 512, 512), (4, 1, 512, 512),
-                                         (2, 1, 37, 61), (2, 2, 37, 61), (1, 4, 50, 97),
-                                         (2, 1, 2, 3), (2, 1, 3, 2), (1, 2, 3, 3),
-                                         (21846, 1, 2, 2))):
+    # scales against one target (reps 4), and the identity error (reps 1),
+    # timed at the main path's batch 2 and at synthetic exp-212's batch 4; the
+    # identity error of sde (batch 8); odd shapes with reps 1 and 2; the
+    # strips' edges (H not a multiple of the row tile, W odd and not a
+    # multiple of the strip, H and W of 2 and 3, where the folds of rows 0
+    # and H+1 meet); more than 65,535 planes (21,846 x 3)
+    timed = {(2, 4): "main", (4, 4): b4, (2, 1): "main", (4, 1): b4}
+    for n, reps, h, w in ((2, 4, 512, 512), (4, 4, 512, 512), (2, 1, 512, 512),
+                          (4, 1, 512, 512), (8, 1, 512, 512), (2, 1, 37, 61), (2, 2, 37, 61),
+                          (1, 4, 50, 97), (2, 1, 2, 3), (2, 1, 3, 2), (1, 2, 3, 3),
+                          (21846, 1, 2, 2)):
         pred, target, g = _reprojection_inputs(n, reps, h, w, seed=7 + h + reps)
         got = reprojection.reprojection_error(pred, target, reps)
         ref = reprojection.reprojection_error_plain(pred, target, reps)
@@ -377,48 +444,38 @@ def phase_kernels():
             raise AssertionError(f"K2 disagrees with its plain version: {err}")
         if not (math.isfinite(derr) and derr <= K3_REL_TOL * dscale) or dgot.shape != shape:
             raise AssertionError(f"K3 disagrees with its plain version: {derr} of {dscale}")
-        if i > 0:
-            records["reprojection"]["max_abs_err"] = max(
-                records["reprojection"]["max_abs_err"], err)
-            records["reprojection_grad"]["max_abs_err"] = max(
-                records["reprojection_grad"]["max_abs_err"], derr)
-            if (n, reps, h, w) == (4, 1, 512, 512):  # the exp-212 identity error
-                ms = _time_ms(lambda: reprojection.reprojection_error(pred, target, reps))
-                plain_ms = _time_ms(
-                    lambda: reprojection.reprojection_error_plain(pred, target, reps))
-                bound_ms, bound_by = _bound(f32 * (2 * n * 3 * h * w + n * h * w),
-                                            n * 3 * h * w * K2_OPS)
-                print(f"[kernels] K2 reprojection identity shape {shape}: kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-                records["reprojection"].update(ms_identity=ms, plain_ms_identity=plain_ms,
-                                               bound_ms_identity=bound_ms)
+        if "reprojection" not in records:
+            records["reprojection"] = {"max_abs_err": err}
+            records["reprojection_grad"] = {"max_abs_err": derr, "max_abs_plain": dscale}
+        records["reprojection"]["max_abs_err"] = max(records["reprojection"]["max_abs_err"], err)
+        records["reprojection_grad"]["max_abs_err"] = max(
+            records["reprojection_grad"]["max_abs_err"], derr)
+        where = timed.get((n, reps)) if (h, w) == (512, 512) else None
+        if where is None:
             continue
-        m, px = n * reps, h * w
-        ms = _time_ms(lambda: reprojection.reprojection_error(pred, target, reps))
-        plain_ms = _time_ms(lambda: reprojection.reprojection_error_plain(pred, target, reps))
-        bound_ms, bound_by = _bound(f32 * (m * 3 * px + n * 3 * px + m * px), m * 3 * px * K2_OPS)
-        print(f"[kernels] K2 reprojection main shape: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, bound {bound_ms:.4f} ms ({bound_by})")
-        records["reprojection"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                   "bound_ms": bound_ms, "bound_by": bound_by,
-                                   "library_ms": None}
-        dms = _time_ms(lambda: reprojection.reprojection_error_grad(pred, target, g, reps))
-        dplain_ms = _time_ms(
-            lambda: reprojection.reprojection_error_grad_plain(pred, target, g, reps))
-        # the PyTorch reference: autograd's backward of the f32 plain chain
-        leaf = pred.clone().requires_grad_()
-        chain = reprojection.reprojection_error_plain(leaf, target, reps)
-        lib_ms = _time_ms(lambda: torch.autograd.grad(chain, leaf, g, retain_graph=True))
-        del chain, leaf
-        dbound_ms, dbound_by = _bound(f32 * (2 * m * 3 * px + n * 3 * px + m * px),
-                                      m * 3 * px * K3_OPS)
-        print(f"[kernels] K3 reprojection grad main shape: kernel {dms:.4f} ms, plain "
-              f"{dplain_ms:.4f} ms, autograd of the plain chain {lib_ms:.4f} ms, "
-              f"bound {dbound_ms:.4f} ms ({dbound_by})")
-        records["reprojection_grad"] = {
-            "max_abs_err": derr, "max_abs_plain": dscale, "ms": dms, "plain_ms": dplain_ms,
-            "bound_ms": dbound_ms, "bound_by": dbound_by, "library_ms": lib_ms,
-            "library_call": "torch.autograd backward of the f32 plain SSIM+L1 chain"}
+        k2, k3 = _time_k2_k3(pred, target, g, n, reps, h, w)
+        what = "main" if where == "main" else "synthetic exp-212"
+        print(f"[kernels] K2 reprojection {what} {'pred' if k3 else 'identity'} shape {shape}: "
+              f"kernel {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, bound "
+              f"{k2['bound_ms']:.4f} ms ({k2['bound_by']})")
+        if k3:
+            print(f"[kernels] K3 reprojection grad {what} shape {shape}: kernel "
+                  f"{k3['ms']:.4f} ms, plain {k3['plain_ms']:.4f} ms, autograd of the plain "
+                  f"chain {k3['library_ms']:.4f} ms, bound {k3['bound_ms']:.4f} ms "
+                  f"({k3['bound_by']})")
+        if where == b4:
+            sub2 = records["reprojection"].setdefault(b4, {})
+            if k3:
+                sub2.update(k2)
+                records["reprojection_grad"][b4] = k3
+            else:
+                sub2["identity"] = k2
+        elif k3:
+            records["reprojection"].update(k2)
+            records["reprojection_grad"].update(
+                k3, library_call="torch.autograd backward of the f32 plain SSIM+L1 chain")
+        else:
+            records["reprojection"]["identity"] = k2
     return records
 
 
@@ -693,12 +750,16 @@ def _run_slice(label, cfg, per_step, per_val_batch=None, n_validations=0, run=No
     `per_step` of each kernel in every step and, with
     `training.val_interval`, `per_val_batch` in every batch of each of the
     `n_validations` validations, whose records it checks too (mIoU only
-    where the model segments)."""
-    n_steps = cfg["training"]["train_iters"]
+    where the model segments). A run from scratch takes train_iters - 1
+    steps."""
+    n_steps = cfg["training"]["train_iters"] - 1
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
+    t0 = time.perf_counter()
     records = trainer.train_main(cfg, device="cuda:0", run=run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     launches = _read_launches()
     peak = torch.cuda.max_memory_allocated()
     m, mono = cfg["model"], cfg["monodepth_options"]
@@ -713,17 +774,15 @@ def _run_slice(label, cfg, per_step, per_val_batch=None, n_validations=0, run=No
     for i, r in enumerate(records, start=1):
         losses = " ".join(f"{k} {v:.6f}" for k, v in r.items()
                           if k.endswith("loss") and not k.startswith("val/"))
-        print(f"[{label}] step {i}: {losses}  step {r['step_seconds']:.4f} s "
-              f"(batch making {r['data_seconds']:.4f} s)")
+        print(f"[{label}] step {i}: {losses}  dispatch {r['step_seconds']:.4f} s, waiting "
+              f"on the loaders {r['data_seconds']:.4f} s")
         val = {k[4:]: v for k, v in r.items() if k.startswith("val/")}
         if val:
             validations.append(val)
             print(f"[{label}] validation after step {i}: " + " ".join(
                 f"{k} {v:.6f}" for k, v in val.items()))
-    later = [r["step_seconds"] for r in records[1:]]
-    print(f"[{label}] mean time of steps 2-{n_steps}: {statistics.mean(later):.4f} s, "
-          f"median {statistics.median(later):.4f} s; peak memory allocated "
-          f"{peak / 2**30:.3f} GiB; launches {launches}")
+    print(f"[{label}] train_main {wall:.3f} s for {n_steps} steps and "
+          f"{sum(any(k.startswith('val/') for k in r) for r in records)} validations; peak memory allocated {peak / 2**30:.3f} GiB; launches {launches}")
     if len(records) != n_steps:
         raise AssertionError(f"{label}: {len(records)} steps ran, {n_steps} asked")
     for r in records:
@@ -763,6 +822,7 @@ def _eval_step_once(label, cfg_name):
     memory of one call."""
     run = trainer.build_run(_packaged_cfg(cfg_name), "cuda:0")
     batch = next(run.val_batches())
+    run.close()
     gen = torch.Generator(device="cuda:0").manual_seed(0)
 
     def step():
@@ -817,7 +877,7 @@ def phase_slices():
     launches["exp210_depthcomp"] = _run_slice(
         "slice exp210", _packaged_cfg("exp210_depthcomp_synthetic.yml"),
         {"warp": 0, "reprojection": 0, "reprojection_grad": 0})[0]
-    # validation: exp-212's 3 steps as above, validated after steps 2 and 3
+    # validation: exp-212's 3 steps as above, validated after steps 1 and 3
     # over 2 batches of 4; each batch warps each source frame once (K1) and
     # takes its identity and pred errors through K2, without a backward
     cfg = _packaged_cfg("exp212_pad_online_synthetic.yml")
@@ -862,7 +922,7 @@ def _sde_extras(label, run):
     """One more train step and one validation batch, each counted alone, the
     optimizer update's device time (profiler), and the ImageNet encoder's
     forward time (CUDA events, median of 10) where the model has one."""
-    batch, _ = run.batches(100)
+    batch, _ = run.device_batches()
     per_step = _count_launches(lambda: run.step(batch, None))
     val_batch = next(run.val_batches())
     gen = torch.Generator(device="cuda:0").manual_seed(0)
@@ -942,6 +1002,7 @@ def phase_sde_pretrain():
         print(f"[sde_pretrain] wrote the dec5 run's encoder to {export.name}/encoder.pth with "
               f"checkpoints.save_component: the frozen ImageNet encoder, which the published "
               f"dec5 checkpoint ships (the dec5 export leaves it out under freeze_backbone)")
+        run5.close()
         del run5
         torch.cuda.empty_cache()
 
@@ -962,6 +1023,7 @@ def phase_sde_pretrain():
         if not (all(math.isfinite(f) and f > 0 for f in feat) and len(set(feat)) == len(feat)):
             raise AssertionError(f"dec6: feat_dist_loss {feat}")
         _sde_extras("slice sde_dec6 amp", run6)
+        run6.close()
         del run6
         torch.cuda.empty_cache()
     finally:
@@ -975,15 +1037,348 @@ def phase_sde_pretrain():
     return launches
 
 
+# Cityscapes label ids of the generated label maps: the 19 train classes'
+# ids and two void ids (0 unlabeled, 4 static), which encode to ignore
+_LABEL_IDS = np.array([7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 31, 32, 33,
+                       0, 4], np.uint8)
+EXP212_CITYSCAPES_PER_STEP = {"warp": 4, "reprojection": 8, "reprojection_grad": 4}
+EXP212_PER_VAL_BATCH = {"warp": 2, "reprojection": 4, "reprojection_grad": 0}
+
+
+def write_cityscapes_tree(root, n_train=16, n_val=8, seed=0):
+    """A tree in the layout that `data/cityscapes.py` reads at 512x1024:
+    `leftImg8bit_small/{split}/<city>/<city>_<seq>_000019_leftImg8bit.jpg`
+    (1024x512 JPEG at q98, as `data/prepare_cityscapes.py` writes them), the
+    frames at offsets -1, 0, +1 under `leftImg8bit_sequence_small/`, and
+    `gtFine/{split}/<city>/<city>_<seq>_000019_gtFine_labelIds.png` at
+    2048x1024 (label ids, so the loader's NEAREST resize runs). Frames are
+    upsampled low-frequency patterns with mild noise, shifted by 4 pixels
+    per frame (camera motion), so that JPEG decode costs what it costs on
+    real frames; label maps are upsampled random blocks."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    city = "smoketown"
+    for split, n in (("train", n_train), ("val", n_val)):
+        dirs = [root / tree / split / city
+                for tree in ("leftImg8bit_small", "leftImg8bit_sequence_small", "gtFine")]
+        for d in dirs:
+            d.mkdir(parents=True)
+        for i in range(n):
+            base = rng.uniform(0, 255, (32, 66, 3)).astype(np.uint8)
+            wide = np.asarray(Image.fromarray(base).resize((1056, 512), Image.BICUBIC),
+                              np.float32)
+            for off in (-1, 0, 1):
+                x = 16 + 4 * off
+                frame = wide[:, x: x + 1024] + rng.normal(0, 3, (512, 1024, 3))
+                img = Image.fromarray(np.clip(frame, 0, 255).astype(np.uint8))
+                img.save(dirs[1] / f"{city}_{i:06d}_{19 + off:06d}_leftImg8bit.jpg", quality=98)
+                if off == 0:
+                    img.save(dirs[0] / f"{city}_{i:06d}_000019_leftImg8bit.jpg", quality=98)
+            lbl = Image.fromarray(rng.choice(_LABEL_IDS, (16, 32)), "L")
+            lbl.resize((2048, 1024), Image.NEAREST).save(
+                dirs[2] / f"{city}_{i:06d}_000019_gtFine_labelIds.png")
+
+
+def _host_packages():
+    """The host's data-layer packages and cores, as a line."""
+    parts = []
+    for mod, dist in (("PIL", "pillow"), ("msgpack", "msgpack"), ("tensorboard", "tensorboard"),
+                      ("psutil", "psutil"), ("matplotlib", "matplotlib")):
+        found = importlib.util.find_spec(mod) is not None
+        parts.append(f"{mod} {importlib.metadata.version(dist) if found else 'missing'}")
+    return ", ".join(parts) + f"; {os.cpu_count()} cores"
+
+
+def _run_state(run):
+    """A host copy of what a full-state checkpoint holds."""
+    def host(tree):
+        if isinstance(tree, dict):
+            return {k: host(v) for k, v in tree.items()}
+        return tree.detach().cpu().clone() if isinstance(tree, torch.Tensor) else tree
+
+    return host({"model": run.model.state_dict(), "teacher": run.teacher.state_dict(),
+                 "optimizer": run.optimizer.state_dict(), "best_iou": run.best_iou,
+                 "step": run.optimizer.step_count})
+
+
+def _equal_trees(a, b, path=""):
+    """Paths where two state trees differ (bit for bit, dtypes included)."""
+    if isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path}: keys {sorted(set(a) ^ set(b))[:3]}"]
+        return [d for k in b for d in _equal_trees(a[k], b[k], f"{path}/{k}")]
+    if isinstance(b, torch.Tensor):
+        same = a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+        return [] if same else [path]
+    return [] if a == b else [f"{path}: {a} != {b}"]
+
+
+def _window(run, k, source, resident=False):
+    """Seconds per step of `k` steps between two syncs, the seconds per step
+    spent waiting on the loaders and those spent issuing the copies to the
+    device. `source` is a pair of epoch iterators (labeled, unlabeled) of
+    host batches fed by the loaders, or a list of (labeled, unlabeled) pairs
+    of host batches already loaded (pinned) or, with `resident`, already on
+    the device."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    waited = copied = 0.0
+    for i in range(k):
+        t = time.perf_counter()
+        if isinstance(source, list):
+            batch, unlabeled = source[i % len(source)]
+        else:
+            batch, unlabeled = next(source[0]), next(source[1])
+        t1 = time.perf_counter()
+        if not resident:
+            batch, unlabeled = run.to_device(batch), run.to_device(unlabeled)
+        t2 = time.perf_counter()
+        waited, copied = waited + t1 - t, copied + t2 - t1
+        run.step(batch, unlabeled)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / k, waited / k, copied / k
+
+
+def _data_path_windows(label, run, k=8):
+    """The data path's cost, in windows of `k` steps between two syncs taken
+    in turns: fed by the loaders (each window inside one epoch of both
+    loaders, after one step that fills the prefetch queues), from host
+    batches that the loaders pinned beforehand, with no loader thread
+    running (the copies to the device and the NHWC -> NCHW transposes
+    alone), and from the same batches resident on the device."""
+    def fresh_epochs():
+        for loader in (run.train_loader, run.unlabeled_loader):
+            if len(loader) < k + 1:
+                raise AssertionError(f"{label}: an epoch of {len(loader)} batches holds no "
+                                     f"window of {k} steps after its first")
+        return iter(run.train_loader), iter(run.unlabeled_loader)
+
+    def stop(epochs):
+        for e in epochs:
+            e.close()
+        run.train_loader.close()
+        run.unlabeled_loader.close()
+
+    epochs = fresh_epochs()
+    pinned = [(next(epochs[0]), next(epochs[1])) for _ in range(k)]
+    stop(epochs)
+    resident = [(run.to_device(b), run.to_device(u)) for b, u in pinned]
+    windows = {"loaders": [], "pinned": [], "resident": []}
+    for kind in ("loaders", "pinned", "resident", "resident", "pinned", "loaders"):
+        if kind == "loaders":
+            epochs = fresh_epochs()
+            run.step(run.to_device(next(epochs[0])), run.to_device(next(epochs[1])))
+            windows[kind].append(_window(run, k, epochs))
+            stop(epochs)
+        else:
+            windows[kind].append(_window(run, k, pinned if kind == "pinned" else resident,
+                                         resident=kind == "resident"))
+    for kind, ws in windows.items():
+        print(f"[{label}] windows of {k} steps, {kind}: " + ", ".join(
+            f"{t:.4f} s per step ({w:.4f} s waiting on the loaders, {c:.4f} s issuing the "
+            f"copies)" for t, w, c in ws))
+    return windows
+
+
+def _kernels_at_val_shape(records):
+    """K1 and K2 against their plain versions at the Cityscapes validation
+    shape (batch 2 at 512x1024; K1 with the 4 scale grids of a source frame,
+    K2 on the pred error of the 4 scales and the identity error)."""
+    n, s, h, w = 2, 4, 512, 1024
+    img, grids = _warp_inputs(n, s, h, w, seed=17)
+    ix, iy = (t.contiguous() for t in warp.unnormalize_grid(grids, h, w))
+    got = warp.warp_bilinear_nchw(img, ix, iy, reps=s)
+    ref = warp.warp_bilinear_nchw_plain(img, ix, iy, reps=s)
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+    ms = _time_ms(lambda: warp.warp_bilinear_nchw(img, ix, iy, reps=s))
+    plain_ms = _time_ms(lambda: warp.warp_bilinear_nchw_plain(img, ix, iy, reps=s))
+    print(f"[cityscapes_exp212] K1 warp img {(n, 3, h, w)} S={s}: max|err| out/dfx/dfy = "
+          f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tolerance {KERNEL_TOL:.0e}); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    if not all(math.isfinite(e) and e <= KERNEL_TOL for e in errs):
+        raise AssertionError(f"K1 disagrees with its plain version at {(n, h, w)}: {errs}")
+    records["warp"]["max_abs_err"] = max(records["warp"]["max_abs_err"], *errs)
+    records["warp"]["val_shape"] = {"shape": [n, 3, h, w], "reps": s, "max_abs_err": max(errs),
+                                    "ms": ms, "plain_ms": plain_ms}
+    for reps in (4, 1):
+        pred, target, _ = _reprojection_inputs(n, reps, h, w, seed=23 + reps)
+        got = reprojection.reprojection_error(pred, target, reps)
+        ref = reprojection.reprojection_error_plain(pred, target, reps)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        ms = _time_ms(lambda: reprojection.reprojection_error(pred, target, reps))
+        plain_ms = _time_ms(lambda: reprojection.reprojection_error_plain(pred, target, reps))
+        print(f"[cityscapes_exp212] K2 reprojection pred {(n * reps, 3, h, w)} reps {reps}: "
+              f"max|err| = {err:.3e} (tolerance {KERNEL_TOL:.0e}); kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms")
+        if not (math.isfinite(err) and err <= KERNEL_TOL) or got.shape != (n * reps, 1, h, w):
+            raise AssertionError(f"K2 disagrees with its plain version at {(n, reps, h, w)}: "
+                                 f"{err}")
+        records["reprojection"]["max_abs_err"] = max(records["reprojection"]["max_abs_err"], err)
+        records["reprojection"].setdefault("val_shape", []).append(
+            {"shape": [n * reps, 3, h, w], "reps": reps, "max_abs_err": err, "ms": ms,
+             "plain_ms": plain_ms})
+
+
+def _check_validations(label, records, at):
+    got = [i for i, r in enumerate(records, start=1) if "val/Mean IoU" in r]
+    if got != at:
+        raise AssertionError(f"{label}: validated after steps {got}, expected {at}")
+
+
+def phase_cityscapes_exp212(records):
+    """exp-212 from a generated Cityscapes tree through train_main, cut and
+    resumed (see the module docstring). Returns the launches of the two
+    runs."""
+    label = "cityscapes_exp212"
+    print(f"[{label}] host packages: {_host_packages()}")
+    tmp = Path(tempfile.mkdtemp(prefix="cityscapes_exp212_"))
+    launches = {}
+    run1 = run2 = run3 = None
+    try:
+        t0 = time.perf_counter()
+        write_cityscapes_tree(tmp / "cityscapes")
+        print(f"[{label}] wrote the tree (16 train, 8 val frames) in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        def config(train_iters, auto_resume):
+            cfg = _packaged_cfg("exp212_pad_online_cityscapes.yml")
+            cfg["data"]["path"] = str(tmp / "cityscapes")
+            cfg["training"].update(log_path=str(tmp / "run"), train_iters=train_iters,
+                                   auto_resume=auto_resume)
+            return cfg
+
+        cfg1 = config(5, False)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run1 = trainer.build_run(cfg1, "cuda:0")
+        n_val_batches = len(run1.val_loader)
+        print(f"[{label}] train set {len(run1.train_loader.dataset)} labeled, unlabeled set "
+              f"{len(run1.unlabeled_loader.dataset)}, val set {len(run1.val_loader.dataset)} "
+              f"({n_val_batches} batches of 2 at 512x1024)")
+        _reset_launches()
+        t0 = time.perf_counter()
+        first = trainer.train_main(cfg1, "cuda:0", run=run1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["exp212_pad_online_cityscapes"] = _read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        _check_validations(label, first, [1, 3, 4])
+        expect = {k: 4 * v + 3 * n_val_batches * EXP212_PER_VAL_BATCH[k]
+                  for k, v in EXP212_CITYSCAPES_PER_STEP.items()}
+        print(f"[{label}] run 1: 4 steps, validated after steps 1, 3 and 4, in {wall:.3f} s; "
+              f"launches {launches['exp212_pad_online_cityscapes']} (expected {expect}); peak "
+              f"memory allocated {peak / 2**30:.3f} GiB")
+        for i, r in enumerate(first, start=1):
+            print(f"[{label}] run 1 step {i}: total_loss {r['total_loss']:.6f} unlabeled_loss "
+                  f"{r['unlabeled_loss']:.6f} waiting on the loaders {r['data_seconds']:.4f} "
+                  f"s, dispatch {r['step_seconds']:.4f} s" + (
+                      f"; validation mIoU {r['val/Mean IoU']:.6f}, "
+                      f"{r['val/eval_seconds_per_batch']:.4f} s per batch"
+                      if "val/Mean IoU" in r else ""))
+        if launches["exp212_pad_online_cityscapes"] != expect:
+            raise AssertionError(f"{label}: launches {launches}, expected {expect}")
+        if not all(math.isfinite(v) for r in first for v in r.values()):
+            raise AssertionError(f"{label}: a value is not finite")
+        files = sorted(os.listdir(tmp / "run"))
+        print(f"[{label}] run 1 files: {files}")
+        for f in ("best_model.pth", "best_model.json", "last_model.pth", "last_model.json",
+                  "metrics.jsonl", "cfg.yml"):
+            if f not in files:
+                raise AssertionError(f"{label}: run 1 wrote no {f}")
+        with open(tmp / "run" / "last_model.json") as f:
+            side = json.load(f)
+        if side["step"] != 4:
+            raise AssertionError(f"{label}: last_model.json {side}")
+        saves = [(i, r["val/save_seconds"]) for i, r in enumerate(first, start=1)
+                 if "val/save_seconds" in r]
+        print(f"[{label}] run 1 waited for the checkpoint saves (best and last from one host "
+              f"snapshot, behind the previous save's write) after steps " + ", ".join(
+                  f"{i}: {t:.4f} s" for i, t in saves) + "; the last save: synchronous copy "
+              f"to the host {run1.checkpoints.snapshot_seconds:.4f} s, files written on its "
+              f"thread {run1.checkpoints.write_seconds:.4f} s, "
+              f"{os.path.getsize(tmp / 'run' / 'last_model.pth') / 2**20:.1f} MiB each")
+
+        saved = _run_state(run1)
+        cfg2 = config(7, True)
+        run2 = trainer.build_run(cfg2, "cuda:0")
+        loaded = _run_state(run2)
+        diff = _equal_trees(loaded, saved)
+        n_tensors = sum(len(saved[k]) for k in ("model", "teacher"))
+        print(f"[{label}] resumed at iteration {run2.start_iter}, best_iou {run2.best_iou:.6f}, "
+              f"lr_scale {run2.optimizer.lr_scale}; state equal to run 1's last bit for bit "
+              f"({n_tensors} model and teacher tensors, "
+              f"{len(saved['optimizer']['state'])} momentum buffers): {not diff}")
+        if diff or run2.start_iter != 4:
+            raise AssertionError(f"{label}: resumed state differs at {diff[:5]}, iteration "
+                                 f"{run2.start_iter}")
+        run1.close()
+        run1 = None
+        torch.cuda.empty_cache()
+        _reset_launches()
+        second = trainer.train_main(cfg2, "cuda:0", run=run2)
+        launches["exp212_pad_online_cityscapes_resumed"] = _read_launches()
+        _check_validations(label, second, [1, 2])  # steps 5 ((5 + 1) % 2) and 6 (the last)
+        expect = {k: 2 * v + 2 * n_val_batches * EXP212_PER_VAL_BATCH[k]
+                  for k, v in EXP212_CITYSCAPES_PER_STEP.items()}
+        print(f"[{label}] run 2: {len(second)} steps (5 and 6), launches "
+              f"{launches['exp212_pad_online_cityscapes_resumed']} (expected {expect})")
+        if len(second) != 2 or launches["exp212_pad_online_cityscapes_resumed"] != expect:
+            raise AssertionError(f"{label}: the resumed run took {len(second)} steps")
+
+        # launches of one step and of one validation batch, alone
+        batch, unlabeled = run2.device_batches()
+        per_step = _count_launches(lambda: run2.step(batch, unlabeled))
+        val_batch = next(run2.val_batches())
+        gen = torch.Generator(device="cuda:0").manual_seed(0)
+        per_val = _count_launches(lambda: train_steps.eval_step(run2.model, val_batch,
+                                                                run2.step_cfg, generator=gen))
+        print(f"[{label}] launches of one train step {per_step}, of one validation batch "
+              f"{per_val}")
+        if per_step != EXP212_CITYSCAPES_PER_STEP or per_val != EXP212_PER_VAL_BATCH:
+            raise AssertionError(f"{label}: launches {per_step}, {per_val}")
+        del batch, unlabeled, val_batch
+        run2.close()
+        run2 = None
+        torch.cuda.empty_cache()
+
+        # the data path's cost, on a larger tree whose epochs hold a window:
+        # 40 train frames, 20 of them labeled (10 batches per epoch), all 40
+        # unlabeled (20 batches)
+        write_cityscapes_tree(tmp / "cityscapes_windows", n_train=40, n_val=2, seed=1)
+        cfg3 = config(7, False)
+        cfg3["data"]["path"] = str(tmp / "cityscapes_windows")
+        cfg3["data"]["restrict_to_subset"]["n_subset"] = 20
+        cfg3["training"]["log_path"] = str(tmp / "run_windows")
+        run3 = trainer.build_run(cfg3, "cuda:0")
+        _data_path_windows(label, run3)
+        _kernels_at_val_shape(records)
+    finally:
+        for run in (run1, run2, run3):
+            if run is not None:
+                run.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
-    phase_device()
-    phase_build()
-    records = phase_kernels()
-    phase_small_steps()
-    launches = phase_slices()
-    launches.update(phase_sde_pretrain())
-    main_path = launches["exp212_pad_online"]
+    card = phase_device()
+    # the runs' log paths default to $SDT_OUT_DIR/logs: keep them out of the checkout
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_out_")
+    os.environ["SDT_OUT_DIR"] = out_dir
+    try:
+        phase_build()
+        records = phase_kernels()
+        phase_small_steps()
+        launches = phase_slices()
+        launches.update(phase_sde_pretrain())
+        launches.update(phase_cityscapes_exp212(records))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    main_path = launches["exp212_pad_online_cityscapes"]
     pkg = Path(PKG)
     kernels = []
     for key, name, source, replaces in (
@@ -996,6 +1391,7 @@ def main():
                         "launches_by_path": {p: c[key] for p, c in launches.items()},
                         **records[key]})
     print(f"[smoke] total wall time {time.perf_counter() - t0:.1f} s")
+    print(card)  # again near the end: the output's head may be cut
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

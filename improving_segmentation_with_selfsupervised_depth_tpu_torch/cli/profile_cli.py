@@ -3,9 +3,9 @@
     python -m improving_segmentation_with_selfsupervised_depth_tpu_torch.cli.profile_cli \
         --config <yaml> [--set training.fused_reprojection=false] [--out result.json]
 
-Builds the config's run with `engine/trainer.py::build_run`, makes two
-labeled (and unlabeled) batches on the device up front and alternates them,
-so that no host batch making falls inside a step. It runs one warm-up step,
+Builds the config's run with `engine/trainer.py::build_run`, takes two
+labeled (and unlabeled) batches from its loaders to the device up front and
+alternates them, so that no host batch making falls inside a step. It runs one warm-up step,
 STEPS timed steps (host clock from the step's start to its losses on the
 host, which waits for the device) and PROFILED steps under
 `torch.profiler`. It prints the card and its power limit, the step times,
@@ -96,7 +96,8 @@ def main(argv=None):
     print(card)
 
     run = build_run(cfg, "cuda:0")
-    batches = [run.batches(i) for i in range(2)]
+    batches = [run.device_batches() for _ in range(2)]
+    run.close()  # the loaders' threads are not needed after the two batches
     first, _ = _step(run, *batches[0])
     torch.cuda.reset_peak_memory_stats()
     times = []

@@ -1,5 +1,6 @@
 """Synthetic batches (numpy, NHWC), byte-for-byte those of the JAX package's
-`data/synthetic.py`, and their move to the device as NCHW tensors.
+`data/synthetic.py`; `data/loader.py::to_device_batch` moves them to the
+device as NCHW tensors.
 
 Batch dict contract (reference loader/sequence_segmentation_loader.py:183-250):
   color_{f}_{s}, color_aug_{f}_{s}  float32 in [0, 1]
@@ -15,9 +16,9 @@ from __future__ import annotations
 from typing import Any, Dict, Sequence
 
 import numpy as np
-import torch
 
 from ..ops.photometric import key_of
+from .loader import to_device_batch  # noqa: F401  (the batches' move to the device)
 
 
 def camera_matrix(h: int, w: int) -> np.ndarray:
@@ -68,17 +69,3 @@ def make_synthetic_batch(
         batch["onehot_lbl"] = np.eye(n_classes, dtype=np.float32)[np.clip(lbl, 0, n_classes - 1)]
         batch["is_labeled"] = np.arange(batch_size) % 2 == 0
     return batch
-
-
-def to_device_batch(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """NHWC numpy batch -> NCHW torch tensors on `device` (labels as int64;
-    one-hot labels are images too)."""
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        if k == "lbl":
-            t = t.long()
-        elif t.dim() == 4:  # images (N, H, W, C); intrinsics are (N, 4, 4)
-            t = t.permute(0, 3, 1, 2).contiguous()
-        out[k] = t.to(device, non_blocking=True)
-    return out

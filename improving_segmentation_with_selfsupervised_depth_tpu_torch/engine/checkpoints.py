@@ -1,51 +1,80 @@
-"""Pretrained weights in, SDE components out, as the reference's `.pth` files.
+"""Checkpoints of the port: pretrained weights in, SDE components out, and
+the full training state for resuming.
 
-Port of the JAX package's `engine/checkpoints.py::save_monodepth_models`
-and `apply_pretraining` with `engine/torch_interop.py::maybe_load_torch_component`
-(reference train.py:377-390, models/utils.py:18-97). A component file is
-the submodule's `state_dict()` in the reference layout:
-`<dir>/{encoder,depth,pose_encoder,pose}.pth`, which the JAX package's
-`apply_pretraining` reads too. ImageNet weights are torchvision's
-`<download_model_dir>/imnet/<backbone>.pth` (keys without the `encoder.`
-prefix; `fc.*` is not read). An encoder of more input frames than its file
-(the two-frame pose encoder from a ResNet-18) gets `conv1` repeated over the
-frames and divided by their count (reference models/resnet_encoder.py:57-60).
+Port of the JAX package's `engine/checkpoints.py`:
+- `save_monodepth_models` and `apply_pretraining` with
+  `engine/torch_interop.py::maybe_load_torch_component` (reference
+  train.py:377-390, models/utils.py:18-97). A component file is the
+  submodule's `state_dict()` in the reference layout:
+  `<dir>/{encoder,depth,pose_encoder,pose}.pth`, which the JAX package's
+  `apply_pretraining` reads too. ImageNet weights are torchvision's
+  `<download_model_dir>/imnet/<backbone>.pth` (keys without the `encoder.`
+  prefix; `fc.*` is not read). An encoder of more input frames than its file
+  (the two-frame pose encoder from a ResNet-18) gets `conv1` repeated over
+  the frames and divided by their count (reference
+  models/resnet_encoder.py:57-60). Where the JAX package's own export lies
+  (`<stem>.msgpack`, flax's msgpack format of `{params, batch_stats}`), it
+  is read in its place, as the JAX package does, and mapped through
+  `engine/interop.py::state_dict_from_jax`.
+- `ResumeWriter.save_resume` / `load_resume` (reference train.py:360-410):
+  the model, the EMA teacher, the optimizer's state (SGD's momentum, Adam's
+  mu, nu; the step count that the lr schedule and the EMA read; the
+  plateau's `lr_scale`) in one `torch.save` file, `<basename>.pth`, with a
+  `<basename>.json` sidecar of `{step, best_iou}`. Writes are atomic (tmp +
+  `os.replace`). One save writes several basenames (a validation's best and
+  last) from one host snapshot. An asynchronous save copies the state to the
+  host before it returns and writes the files on a thread; `wait_for_saves` joins it and
+  re-raises its error. A JAX full-state `.msgpack` (an optax `opt_state`
+  tree) is not read.
 
 There is no download: a missing `mono*` component raises FileNotFoundError,
 a missing ImageNet file prints the JAX package's warning and leaves the
-component as initialized. Reading the JAX package's own `.msgpack` exports
-needs flax's serialization and is not ported; where one lies, the JAX
-package would read it, so the port raises.
+component as initialized.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Any, Dict, Optional
+import shutil
+import threading
+import time
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from .. import not_ported
+from .interop import state_dict_from_jax
 
 MONODEPTH_COMPONENTS = ("depth", "pose_encoder", "pose")
 _ENCODERS = ("encoder", "pose_encoder", "imnet_encoder")
 
 
-def save_component(ckpt_dir: str, model: torch.nn.Module, name: str) -> str:
-    """Write `model.models[name]`'s state_dict to `<ckpt_dir>/<name>.pth`."""
+def save_component(ckpt_dir: str, model: torch.nn.Module, name: str,
+                   params_from: Optional[torch.nn.Module] = None) -> str:
+    """Write `model.models[name]`'s state_dict to `<ckpt_dir>/<name>.pth`;
+    with `params_from` (the EMA teacher) its parameters in place of the
+    model's, beside the model's buffers, as the JAX package exports the EMA
+    parameters with the state's batch statistics."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, f"{name}.pth")
-    torch.save({k: v.detach().cpu().clone()
-                for k, v in model.models[name].state_dict().items()}, path)
+    sd = model.models[name].state_dict()
+    if params_from is not None:
+        params = dict(params_from.models[name].named_parameters())
+        sd = {k: params.get(k, v) for k, v in sd.items()}
+    torch.save({k: v.detach().cpu().clone() for k, v in sd.items()}, path)
     return path
 
 
 def save_monodepth_models(ckpt_dir: str, model: torch.nn.Module,
-                          include_encoder: bool = False) -> None:
-    """Export the SDE components the model has (reference train.py:377-390)."""
+                          include_encoder: bool = False,
+                          params_from: Optional[torch.nn.Module] = None) -> None:
+    """Export the SDE components the model has (reference train.py:377-390),
+    with `params_from`'s parameters (`training.save_monodepth_ema`)."""
     for name in MONODEPTH_COMPONENTS + (("encoder",) if include_encoder else ()):
         if name in model.models:
-            save_component(ckpt_dir, model, name)
+            save_component(ckpt_dir, model, name, params_from)
 
 
 def load_torch_component(path: str, model: torch.nn.Module, name: str) -> None:
@@ -53,7 +82,64 @@ def load_torch_component(path: str, model: torch.nn.Module, name: str) -> None:
     place. Every tensor of the submodule must be in the file with its shape
     (BatchNorm's `num_batches_tracked` may be missing); other keys are not
     read."""
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    _load_state(path, torch.load(path, map_location="cpu", weights_only=True), model, name)
+
+
+def _ndarray(data: bytes) -> np.ndarray:
+    """flax's ndarray ext payload: msgpack of (shape, dtype name, C-order
+    bytes); bfloat16 (which numpy lacks) is widened to float32."""
+    import msgpack
+
+    shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
+    if dtype_name == b"bfloat16":
+        flat = torch.frombuffer(bytearray(buffer), dtype=torch.bfloat16).float().numpy()
+    else:
+        flat = np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode()))
+    return flat.reshape(shape)
+
+
+def _ext_unpack(code: int, data: bytes):
+    """flax's msgpack ext types for arrays: 1 ndarray, 3 numpy scalar."""
+    import msgpack
+
+    if code == 1:
+        return _ndarray(data)
+    if code == 3:
+        return _ndarray(data)[()]
+    return msgpack.ExtType(code, data)
+
+
+def read_msgpack(path: str) -> Dict[str, Any]:
+    """A file in flax's msgpack serialization (`flax.serialization.to_bytes`)
+    as a tree of dicts with numpy leaves. Leaves of more than 2^30 bytes,
+    which flax splits into chunks, are not joined: no component has one."""
+    import msgpack
+
+    with open(path, "rb") as f:
+        tree = msgpack.unpackb(f.read(), ext_hook=_ext_unpack, raw=False)
+    if not isinstance(tree, dict):
+        raise ValueError(f"{path}: not a flax msgpack tree")
+    return tree
+
+
+def load_msgpack_component(path: str, model: torch.nn.Module, name: str,
+                           model_cfg: Dict[str, Any]) -> None:
+    """Load the JAX package's component export (`{params[, batch_stats]}` of
+    submodule `name`) into `model.models[name]`, in place, through
+    `state_dict_from_jax`."""
+    tree = read_msgpack(path)
+    if "params" not in tree:
+        raise ValueError(f"{path}: no params in the component tree (keys {sorted(tree)})")
+    sd = state_dict_from_jax({name: tree["params"]}, {name: tree.get("batch_stats", {})},
+                             model_cfg)
+    prefix = f"models.{name}."
+    _load_state(path, {k[len(prefix):]: v for k, v in sd.items()}, model, name)
+
+
+def _load_state(path: str, sd: Dict[str, torch.Tensor], model: torch.nn.Module,
+                name: str) -> None:
+    """Copy the component state dict `sd` (read from `path`) into
+    `model.models[name]`."""
     own = model.models[name].state_dict()
     # torchvision's layout: the encoder's keys without the wrapper's prefix
     strip = name in _ENCODERS and not any(k.startswith("encoder.") for k in sd)
@@ -78,11 +164,15 @@ def load_torch_component(path: str, model: torch.nn.Module, name: str) -> None:
             own[k].copy_(w)
 
 
-def _load(base: str, stem: str, model: torch.nn.Module, name: str) -> bool:
-    """Load `<base>/<stem>.pth` into `name`; False when there is no file."""
-    if os.path.exists(os.path.join(base, f"{stem}.msgpack")):
-        raise not_ported(f"{os.path.join(base, stem)}.msgpack: reading the JAX package's "
-                         ".msgpack exports (flax serialization)", "trainer I/O")
+def _load(base: str, stem: str, model: torch.nn.Module, name: str,
+          model_cfg: Dict[str, Any]) -> bool:
+    """Load `<base>/<stem>.msgpack` (the JAX package's export, first, as the
+    JAX package reads it) or `<base>/<stem>.pth` into `name`; False when
+    there is neither."""
+    path = os.path.join(base, f"{stem}.msgpack")
+    if os.path.exists(path):
+        load_msgpack_component(path, model, name, model_cfg)
+        return True
     path = os.path.join(base, f"{stem}.pth")
     if not os.path.exists(path):
         return False
@@ -111,7 +201,7 @@ def apply_pretraining(model: torch.nn.Module, model_cfg: Dict[str, Any],
             if name not in model.models:
                 continue
             stem = "resnet18" if name == "pose_encoder" else backbone
-            if not _load(base, stem, model, name):
+            if not _load(base, stem, model, name, model_cfg):
                 print(f"WARNING: imnet weights for {backbone} not found under {base}; "
                       f"{name} stays randomly initialized")
 
@@ -125,7 +215,117 @@ def apply_pretraining(model: torch.nn.Module, model_cfg: Dict[str, Any],
             raise NotImplementedError(f"{cfg_key}={pretrained}")
         for name in names:
             if name in model.models and not _load(os.path.join(root, pretrained), name,
-                                                  model, name):
+                                                  model, name, model_cfg):
                 raise FileNotFoundError(
                     f"Pretrained component {name} for {pretrained} not found at "
                     f"{os.path.join(root, pretrained, name)}.pth")
+
+
+def _to_host(tree):
+    """A copy of `tree` with every tensor detached and copied to the CPU."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def _sidecar(ckpt_path: str) -> str:
+    stem, ext = os.path.splitext(ckpt_path)
+    return stem + ".json" if ext == ".pth" else os.path.join(os.path.dirname(ckpt_path),
+                                                            "best_model.json")
+
+
+class ResumeWriter:
+    """Writes full-state checkpoints, at most one save in flight: a save
+    first joins the previous one, so files land in order and one host
+    snapshot at most waits for its write. `snapshot_seconds` and
+    `write_seconds` are the last save's copy to the host (the part the
+    caller waits for) and its file writes (on the thread when asynchronous)."""
+
+    def __init__(self):
+        self._pending: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self.snapshot_seconds = 0.0
+        self.write_seconds = 0.0
+
+    def wait_for_saves(self) -> None:
+        """Block until the write in flight has landed; re-raise its error (a
+        lost best or last checkpoint loses the run's recovery point)."""
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError("async checkpoint write failed") from err
+
+    def save_resume(self, ckpt_dir: str, model: torch.nn.Module,
+                    teacher: Optional[torch.nn.Module], optimizer, best_iou: float,
+                    async_write: bool = False,
+                    basenames: Sequence[str] = ("best_model",)) -> List[str]:
+        """Save the training state to `<ckpt_dir>/<basename>.pth` and its
+        `{step, best_iou}` sidecar for each of `basenames`, in order, from one
+        host snapshot (JAX `save_resume`, once per file with the same state);
+        `step` is the optimizer's step count. Returns the paths."""
+        self.wait_for_saves()
+        os.makedirs(ckpt_dir, exist_ok=True)
+        paths = [os.path.join(ckpt_dir, b + ".pth") for b in basenames]
+        t0 = time.perf_counter()
+        payload = {"step": optimizer.step_count, "model": model.state_dict(),
+                   "optimizer": optimizer.state_dict()}
+        if teacher is not None:
+            payload["teacher"] = teacher.state_dict()
+        payload = _to_host(payload)
+        meta = {"step": optimizer.step_count, "best_iou": float(best_iou)}
+        self.snapshot_seconds = time.perf_counter() - t0
+
+        def write():
+            t1 = time.perf_counter()
+            for i, path in enumerate(paths):
+                # the first file is serialized, the others are copies of it
+                if i == 0:
+                    torch.save(payload, path + ".tmp")
+                else:
+                    shutil.copyfile(paths[0], path + ".tmp")
+                os.replace(path + ".tmp", path)
+                side = _sidecar(path)
+                with open(side + ".tmp", "w") as f:
+                    json.dump(meta, f)
+                os.replace(side + ".tmp", side)
+            self.write_seconds = time.perf_counter() - t1
+
+        def write_async():
+            try:
+                write()
+            except Exception as e:  # re-raised by wait_for_saves on the caller's thread
+                self._error = e
+
+        if async_write:
+            self._pending = threading.Thread(target=write_async, daemon=True)
+            self._pending.start()
+        else:
+            write()
+        return paths
+
+
+def load_resume(ckpt_path: str, model: torch.nn.Module, teacher: Optional[torch.nn.Module],
+                optimizer) -> Tuple[int, float]:
+    """Restore `ResumeWriter.save_resume`'s file into the model, the teacher
+    and the optimizer, in place (JAX `load_resume`). Returns (step,
+    best_iou), from the sidecar where there is one."""
+    if ckpt_path.endswith(".msgpack"):
+        raise not_ported(f"{ckpt_path}: resuming from the JAX package's full-state "
+                         ".msgpack (an optax opt_state tree)", "trainer I/O")
+    raw = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+    model.load_state_dict(raw["model"])
+    optimizer.load_state_dict(raw["optimizer"])
+    if teacher is not None and "teacher" in raw:
+        teacher.load_state_dict(raw["teacher"])
+    best_iou, step = -100.0, int(raw["step"])
+    meta_path = _sidecar(ckpt_path)
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+        best_iou = meta.get("best_iou", -100.0)
+        step = meta.get("step", step)
+    return step, best_iou

@@ -84,13 +84,19 @@ def build_lr_factor_fn(sched_cfg: Optional[Dict[str, Any]]) -> Callable[[int], f
     if name == "step_lr":
         step_size, gamma = cfg["step_size"], cfg.get("gamma", 0.1)
         return lambda step: gamma ** (step // step_size)
+    if name == "reduce_lr_on_plateau":
+        # the trainer's plateau step scales the update (`lr_scale`) instead
+        return lambda step: 1.0
     raise not_ported(f"lr_schedule {name}", "trainer I/O")
 
 
 class _GroupOptimizer:
-    """What SGD and Adam share: the groups, the clip, the lr schedule and the
-    step count. `_update` moves one group's parameters by its (clipped)
-    gradients, scaled by -lr * factor(step)."""
+    """What SGD and Adam share: the groups, the clip, the lr schedule, the
+    step count and the plateau's `lr_scale`. `_update` moves one group's
+    parameters by its (clipped) gradients, scaled by
+    -lr * factor(step) * lr_scale: `lr_scale` multiplies the final update,
+    as in the JAX package's train step (`engine/train_steps.py:420`), not
+    the gradients that the momentum or Adam's moments accumulate."""
 
     def __init__(self, groups: List[Dict[str, Any]], weight_decay: float,
                  factor_fn: Callable[[int], float], clip_grad_norm: Optional[float],
@@ -101,6 +107,7 @@ class _GroupOptimizer:
         self.clip_grad_norm = clip_grad_norm
         self.clip_groups = clip_groups  # None: clip every gradient
         self.step_count = 0
+        self.lr_scale = 1.0
 
     def zero_grad(self) -> None:
         for g in self.groups:
@@ -127,11 +134,44 @@ class _GroupOptimizer:
                         self.clip_grad_norm / (norm + 1e-6), max=1.0)
         lr_factor = self.factor_fn(self.step_count)
         for g in self.groups:
-            self._update(g["params"], [grads[p] for p in g["params"]], g["lr"] * lr_factor)
+            self._update(g["params"], [grads[p] for p in g["params"]],
+                         g["lr"] * lr_factor * self.lr_scale)
         self.step_count += 1
 
     def _update(self, params, grads, step_size) -> None:
         raise NotImplementedError
+
+    def _buffers(self) -> Dict[str, Dict[torch.nn.Parameter, torch.Tensor]]:
+        """The per-parameter state, by kind."""
+        raise NotImplementedError
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The step count, `lr_scale` and the per-parameter buffers by
+        parameter name (tensors on the parameters' device)."""
+        state: Dict[str, Dict[str, torch.Tensor]] = {}
+        for g in self.groups:
+            for name, p in zip(g["names"], g["params"]):
+                bufs = {kind: b[p] for kind, b in self._buffers().items() if p in b}
+                if bufs:
+                    state[name] = bufs
+        return {"step_count": self.step_count, "lr_scale": self.lr_scale, "state": state}
+
+    def load_state_dict(self, sd: Dict[str, Any]) -> None:
+        """Restore `state_dict()`'s output, its tensors copied to the
+        parameters' device."""
+        params = {name: p for g in self.groups for name, p in zip(g["names"], g["params"])}
+        unknown = set(sd["state"]) - set(params)
+        if unknown:
+            raise ValueError(f"optimizer state for parameters it does not train: "
+                             f"{sorted(unknown)[:5]}")
+        buffers = self._buffers()
+        for b in buffers.values():
+            b.clear()
+        for name, bufs in sd["state"].items():
+            for kind, t in bufs.items():
+                buffers[kind][params[name]] = t.to(params[name].device, copy=True)
+        self.step_count = int(sd["step_count"])
+        self.lr_scale = float(sd["lr_scale"])
 
 
 class SGD(_GroupOptimizer):
@@ -152,6 +192,9 @@ class SGD(_GroupOptimizer):
                 d = d.clone() if buf is None else buf.mul_(self.momentum).add_(d)
                 self.momentum_buffers[p] = d
             p.add_(d, alpha=-step_size)
+
+    def _buffers(self):
+        return {"momentum": self.momentum_buffers}
 
 
 class Adam(_GroupOptimizer):
@@ -191,6 +234,9 @@ class Adam(_GroupOptimizer):
         torch._foreach_div_(update, denom)
         torch._foreach_add_(params, update, alpha=-step_size)
 
+    def _buffers(self):
+        return {"mu": self.mu, "nu": self.nu}
+
 
 def build_optimizer(training_cfg: Dict[str, Any], model_cfg: Dict[str, Any],
                     model: torch.nn.Module) -> _GroupOptimizer:
@@ -220,9 +266,10 @@ def build_optimizer(training_cfg: Dict[str, Any], model_cfg: Dict[str, Any],
             p.requires_grad_(False)
             continue
         group = groups.setdefault(label, {
-            "label": label, "params": [],
+            "label": label, "params": [], "names": [],
             "lr": ocfg.get(_GROUP_LR_KEYS.get(label, ""), base_lr)})
         group["params"].append(p)
+        group["names"].append(pname)
     common = dict(weight_decay=ocfg.get("weight_decay", 0.0),
                   factor_fn=build_lr_factor_fn(training_cfg.get("lr_schedule")),
                   clip_grad_norm=clip,

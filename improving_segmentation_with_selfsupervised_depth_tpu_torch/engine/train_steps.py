@@ -273,7 +273,7 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
                                               teacher_softmax)
             argmax_u_w = teacher_softmax.argmax(1)
 
-    zero = torch.zeros((), device=batch["lbl"].device)
+    zero = torch.zeros((), device=batch[key_of("color_aug", 0, 0)].device)
     outputs = model(batch)
     mono_loss = feat_dist_loss = zero
     if cfg.monodepth_lambda > 0:
@@ -355,7 +355,7 @@ def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor], cfg: StepC
     """
     model.eval()
     outputs = model(batch)
-    zero = torch.zeros((), device=batch["lbl"].device)
+    zero = torch.zeros((), device=batch[key_of("color_aug", 0, 0)].device)
     metrics: Dict[str, torch.Tensor] = {}
     aux: Dict[str, torch.Tensor] = {}
 

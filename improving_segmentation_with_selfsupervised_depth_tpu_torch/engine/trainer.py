@@ -1,69 +1,65 @@
-"""Trainer entry point of the port: `train_main(cfg)`.
+"""Trainer of the port: `build_run(cfg)` and `train_main(cfg)`.
 
-Port of the training loop of the JAX package's `engine/trainer.py` for the
-ported steps: it reads the same YAML schema, builds the joint model on the
-device (and, with `training.unlabeled_segmentation`, its EMA teacher), draws
-a labeled batch (and an unlabeled one) per step from `data.dataset:
-synthetic`, and runs `training.train_iters` steps of
-`engine/train_steps.py::train_step`, logging the losses of every step. With
-`training.val_interval` it validates (`Run.validate`, through
-`engine/train_steps.py::eval_step`) after every interval's last step and
-after the last step, over `data.n_samples` synthetic images (default 16) in
-batches of `training.val_batch_size`, made from fixed seeds, and keeps the
-mIoU, the frequency-weighted accuracy and the best mIoU (a model without a
-segmentation head reports the depth metrics and no mIoU). Before the
-optimizer is built, `engine/checkpoints.py::apply_pretraining` loads the
-weights that `model.*_pretraining` and `enable_imnet_encoder` name from the
-`DOWNLOAD_MODEL_DIR` (`SDT_MODEL_DIR`, `config/machine.py`); after the last
-step, `training.save_separate_monodepth_models` exports the SDE components
-to `training.log_path` (the encoder unless `freeze_backbone`). With
-`training.amp` the model computes in bf16 (`models/joint.py`). What the port
-does not run yet raises NotImplementedError naming its ROADMAP item.
-`training.disable_depth_estimator` is accepted and, as in the JAX package,
-read by nothing.
+Port of the JAX package's `engine/trainer.py` (`Trainer`, l. 103-406, and
+`train_main`, l. 560-587; reference train.py:154-963). It reads the same
+YAML schema and builds, on the device, the joint model (with
+`training.unlabeled_segmentation`, its EMA teacher), the optimizer and the
+step config, and on the host the datasets of `data.dataset` through
+`data/registry.py::build_loader` with their threaded loaders
+(`data/loader.py`): the labeled train loader, the validation loader and,
+for the semi-supervised step, the unlabeled loader, composed as the JAX
+trainer composes them (`only_unlabeled`, `only_labeled`, `mix_video`,
+`mix_use_gt`'s one-hot labels). On a CUDA device the loaders stack batches
+into pinned memory and the trainer copies them with `non_blocking=True`.
+
+The loop is the JAX trainer's, step for step: it starts from the resumed
+iteration (0), counts a step before running it, validates when
+`(step + 1) % current_val_interval(step + 1) == 0` and at
+`step + 1 == train_iters`, and stops there, so a run from scratch takes
+`train_iters - 1` steps. After a validation it compares the mIoU with the
+best (`>=`) and saves the best checkpoint, then the rolling `last_model`,
+then takes the plateau step (`reduce_lr_on_plateau`'s `lr_scale`), then
+early stopping. The step's losses stay on the device until
+`print_interval`, where they are averaged, logged and written
+(`engine/writer.py`: `training/*`; after a validation `validation/*` and
+`val_metrics/*`). `resume` and `auto_resume` (`<log_path>/last_model.pth`)
+restore the state and the iteration (`engine/checkpoints.py`).
+`training.save_separate_monodepth_models` exports the SDE components after
+the last step (the EMA teacher's parameters with `save_monodepth_ema`).
+With `training.amp` the model computes in bf16 (`models/joint.py`).
+What the port does not run yet raises NotImplementedError naming its
+ROADMAP item; `training.disable_depth_estimator` is read by nothing, as in
+the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import logging
 import os
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional
 
+import numpy as np
 import torch
+import yaml
 
 from .. import not_ported
 from ..config.machine import expand_cfg_vars, machine_paths
-from ..data.synthetic import make_synthetic_batch, to_device_batch
+from ..data.loader import DataLoader, infinite_iterator, to_device_batch
+from ..data.registry import build_loader
 from ..models.joint import build_model
 from ..ops.metrics import AverageMeterDict, RunningScore
-from .checkpoints import apply_pretraining, save_monodepth_models
+from ..utils.misc import get_logger, set_seeds
+from .checkpoints import ResumeWriter, apply_pretraining, load_resume, save_monodepth_models
+from .early_stopping import EarlyStopping
 from .optim import build_optimizer
 from .state import make_teacher
 from .train_steps import eval_step, step_config_from_cfg, train_step
+from .writer import MetricsWriter
 
 logger = logging.getLogger("segsde_torch")
-
-# unlabeled and validation batches are drawn from seeds this far from the
-# labeled ones
-_UNLABELED_SEED_OFFSET = 1_000_003
-_VAL_SEED_OFFSET = 2_000_003
-
-
-def _check_supported(cfg: Dict[str, Any]) -> None:
-    data, training = cfg.get("data", {}), cfg["training"]
-    if data.get("dataset") != "synthetic":
-        raise not_ported(f"data.dataset {data.get('dataset')!r} (only 'synthetic')",
-                         "trainer I/O")
-    if training.get("early_stopping"):
-        raise not_ported("training.early_stopping", "trainer I/O")
-    for key in ("save_model", "resume", "auto_resume"):
-        if training.get(key):
-            raise not_ported(f"training.{key} (full-state checkpoints)", "trainer I/O")
-    if training.get("save_separate_monodepth_models") and training.get("save_monodepth_ema"):
-        raise not_ported("training.save_monodepth_ema (exporting the EMA teacher)",
-                         "trainer I/O")
 
 
 def current_val_interval(cfg: Dict[str, Any], step: int) -> int:
@@ -81,162 +77,510 @@ def current_val_interval(cfg: Dict[str, Any], step: int) -> int:
     return intervals[-1][1]
 
 
+def _colorize(img: np.ndarray, cmap: str = "plasma") -> np.ndarray:
+    """A depth or disparity map as RGB (reference train.py:137-151): the
+    matplotlib colormap where matplotlib is installed, else gray."""
+    img = np.asarray(img, np.float64).squeeze()
+    vmin, vmax = float(np.min(img)), float(np.max(img))
+    norm = np.clip(img, vmin, vmax) / max(vmax, 1e-12)
+    if importlib.util.find_spec("matplotlib") is None:
+        return np.stack([norm, norm, norm], axis=-1)
+    import matplotlib
+
+    return matplotlib.colormaps[cmap](norm)[..., :3]
+
+
+def _host(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
 @dataclasses.dataclass
 class Run:
-    """What a training run holds: the model (and EMA teacher) on the device,
-    the optimizer, the step config, the step's generator, the batch source
-    and the validation scores."""
+    """What a training run holds: its config, the model (and EMA teacher) on
+    the device, the optimizer, the step config and the step's generator, the
+    loaders, the run's files (log path, metrics writer, checkpoint writer),
+    the plateau and early-stopping state and the validation scores."""
 
+    cfg: Dict[str, Any]
     model: torch.nn.Module
     teacher: Optional[torch.nn.Module]
     optimizer: Any
     step_cfg: Any
     generator: torch.Generator
     device: str
+    train_loader: DataLoader
+    val_loader: DataLoader
+    unlabeled_loader: Optional[DataLoader]
+    n_classes: int
     batch_size: int
     height: int
     width: int
-    n_classes: int
-    seed: int
-    val_batch_size: int
-    n_val_samples: int
+    log_path: str
+    writer: MetricsWriter
+    checkpoints: ResumeWriter
+    plateau: Optional[Dict[str, Any]] = None
+    early_stopping: Optional[EarlyStopping] = None
+    run_id: str = "run"
     mIoU: float = 0.0
     fwAcc: float = 0.0
     best_iou: float = -100.0
+    start_iter: int = 0
+    unlabeled_iter: Optional[Iterator] = None
+    _extra_iter: Optional[Iterator] = None
 
-    def _make(self, n, seed, unlabeled=False):
-        return to_device_batch(make_synthetic_batch(
-            n, self.height, self.width, frame_ids=self.step_cfg.frame_ids,
-            num_scales=len(self.step_cfg.scales), n_classes=self.n_classes, seed=seed,
-            with_unlabeled_extras=unlabeled), self.device)
+    def __post_init__(self):
+        if self.unlabeled_loader is not None:
+            self.unlabeled_iter = infinite_iterator(self.unlabeled_loader)
 
-    def batches(self, step: int):
-        """The labeled batch of `step` (and its unlabeled batch, or None),
-        made on the host from seeds and moved to the device."""
-        batch = self._make(self.batch_size, self.seed + step)
-        unlabeled = (self._make(self.batch_size, self.seed + step + _UNLABELED_SEED_OFFSET,
-                                True) if self.step_cfg.unlabeled else None)
-        return batch, unlabeled
+    def to_device(self, host_batch) -> Dict[str, torch.Tensor]:
+        return to_device_batch(host_batch, self.device)
+
+    def next_unlabeled(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The next unlabeled batch on the device (None without one)."""
+        if self.unlabeled_iter is None:
+            return None
+        return self.to_device(next(self.unlabeled_iter))
+
+    def device_batches(self):
+        """The next labeled batch (and unlabeled batch, or None) on the
+        device, from the loaders, outside the training loop (for profiling
+        and checks)."""
+        if self._extra_iter is None:
+            self._extra_iter = infinite_iterator(self.train_loader)
+        return self.to_device(next(self._extra_iter)), self.next_unlabeled()
 
     def val_batches(self):
-        """The validation set, the same at every validation: `n_val_samples`
-        images in batches of `val_batch_size` (the last one may be smaller)."""
-        for i, start in enumerate(range(0, self.n_val_samples, self.val_batch_size)):
-            n = min(self.val_batch_size, self.n_val_samples - start)
-            yield self._make(n, self.seed + _VAL_SEED_OFFSET + i)
-
-    def validate(self) -> Dict[str, float]:
-        """Evaluate the model on the validation set (JAX `Trainer.validate`).
-
-        Returns the batch means of the eval step's losses and depth metrics,
-        with segmentation on `Mean IoU` and `fwAcc` of the summed confusion
-        matrix, and `best_iou`; `eval_seconds_per_batch` is the host time
-        from an eval step's start to its metrics on the host, which waits for
-        the device, averaged over the batches.
-        """
-        meter = AverageMeterDict()
-        running = RunningScore(self.n_classes)
-        # the photometric tie-break noise: the same draws at every validation
-        generator = torch.Generator(device=self.device).manual_seed(0)
-        seconds = []
-        for batch in self.val_batches():
-            t0 = time.perf_counter()
-            metrics, conf, _ = eval_step(self.model, batch, self.step_cfg, generator=generator)
-            meter.update({k: float(v) for k, v in metrics.items()})
-            running.update_matrix(conf)
-            seconds.append(time.perf_counter() - t0)
-        record = dict(meter.avgs)
-        if self.step_cfg.segmentation_lambda > 0:
-            score, _ = running.get_scores()
-            self.mIoU = score["Mean IoU : \t"]
-            self.fwAcc = score["FreqW Acc : \t"]
-            record.update({"Mean IoU": self.mIoU, "fwAcc": self.fwAcc})
-        self.best_iou = max(self.best_iou, self.mIoU)
-        record.update(best_iou=self.best_iou,
-                      eval_seconds_per_batch=sum(seconds) / len(seconds))
-        return record
+        """The validation set on the device, batch by batch, in order."""
+        for host in self.val_loader:
+            yield self.to_device(host)
 
     def step(self, batch, unlabeled_batch) -> Dict[str, torch.Tensor]:
         return train_step(self.model, self.optimizer, batch, self.step_cfg,
                           generator=self.generator, unlabeled_batch=unlabeled_batch,
                           teacher=self.teacher)
 
+    def validate(self, step: int) -> Dict[str, float]:
+        """Evaluate the model on the validation set (JAX `Trainer.validate`)
+        after step `step`, write the validation scalars and images at
+        `step + 1`, and set `mIoU` and `fwAcc` (not `best_iou`: the loop
+        compares and saves).
 
-def build_run(cfg: Dict[str, Any], device: str = "cuda:0") -> Run:
-    """Check the config and build its run on `device`: expands the config's
-    `MachineConfig.X` paths in place and loads the pretrained weights."""
-    paths = machine_paths()
-    expand_cfg_vars(cfg, paths)
+        Returns the batch means of the eval step's losses and depth metrics,
+        with segmentation `Mean IoU` and `fwAcc` of the summed confusion
+        matrix; `eval_seconds_per_batch` is the host time from an eval
+        step's start to its metrics on the host, which waits for the device,
+        averaged over the batches.
+        """
+        training = self.cfg["training"]
+        meter = AverageMeterDict()
+        running = RunningScore(self.n_classes)
+        # the photometric tie-break noise: the same draws at every validation
+        generator = torch.Generator(device=self.device).manual_seed(0)
+        n_imgs = training.get("n_tensorboard_imgs", 20)
+        imgs_to_save, seconds = [], []
+        for host in self.val_loader:
+            batch = self.to_device(host)
+            t0 = time.perf_counter()
+            metrics, conf, aux = eval_step(self.model, batch, self.step_cfg, generator=generator)
+            meter.update({k: float(v) for k, v in metrics.items()})
+            running.update_matrix(conf)
+            seconds.append(time.perf_counter() - t0)
+            if len(imgs_to_save) < n_imgs:
+                imgs = _host(host["color_aug_0_0"])
+                gts = _host(host["lbl"]) if "lbl" in host else None
+                preds = _host(aux["pred"]) if "pred" in aux else None
+                disps = _host(aux["disp_0"].float()) if "disp_0" in aux else None
+                for j in range(imgs.shape[0]):
+                    if len(imgs_to_save) >= n_imgs:
+                        break
+                    imgs_to_save.append(tuple(None if a is None else a[j]
+                                              for a in (imgs, gts, preds, disps)))
+        self._log_val_images(imgs_to_save, step)
+        record = dict(meter.avgs)
+        for k, v in meter.avgs.items():
+            self.writer.add_scalar("validation/" + k, v, step + 1)
+        if training.get("segmentation_lambda", 1.0) > 0:
+            score, class_iou = running.get_scores()
+            for k, v in score.items():
+                self.writer.add_scalar(f"val_metrics/{k.strip()}", v, step + 1)
+            for k, v in class_iou.items():
+                self.writer.add_scalar(f"val_metrics/cls_{k}", v, step + 1)
+            self.mIoU = score["Mean IoU : \t"]
+            self.fwAcc = score["FreqW Acc : \t"]
+            record.update({"Mean IoU": self.mIoU, "fwAcc": self.fwAcc})
+        record["eval_seconds_per_batch"] = sum(seconds) / len(seconds)
+        return record
+
+    def _log_val_images(self, imgs_to_save, step: int) -> None:
+        """Input / GT / prediction / colorized depth per sample (reference
+        train.py:904-923)."""
+        decode = self.val_loader.dataset.decode_segmap_tocolor
+        for j, (img, gt, pred, disp) in enumerate(imgs_to_save):
+            prefix = f"{self.run_id.replace('/', '_')}/{j}"
+            self.writer.add_image(f"{prefix}_0image", img, step + 1)
+            if gt is not None:
+                self.writer.add_image(f"{prefix}_1ground_truth", decode(gt), step + 1)
+            if pred is not None:
+                self.writer.add_image(f"{prefix}_2prediction", decode(pred), step + 1)
+            if disp is not None:
+                self.writer.add_image(f"{prefix}_3depth", _colorize(disp), step + 1)
+
+    def tensorboard_training_images(self) -> None:
+        """Write the first `n_tensorboard_trainimgs` training images and
+        their labels at step 0 (reference train.py:412-431). This iterates
+        the train loader, and so draws from its shuffle and the global
+        random stream, before the first step, as the JAX trainer does."""
+        n = self.cfg["training"].get("n_tensorboard_trainimgs", 0)
+        if n == 0:
+            return
+        decode = self.val_loader.dataset.decode_segmap_tocolor
+        saved = 0
+        for batch in self.train_loader:
+            imgs = _host(batch["color_aug_0_0"])
+            lbls = _host(batch["lbl"]) if "lbl" in batch else None
+            for j in range(imgs.shape[0]):
+                if saved >= n:
+                    return
+                saved += 1
+                prefix = f"trainset_{self.run_id.replace('/', '_')}/{saved}"
+                self.writer.add_image(f"{prefix}_0image", imgs[j], 0)
+                if lbls is not None:
+                    self.writer.add_image(f"{prefix}_1ground_truth", decode(lbls[j]), 0)
+            if saved >= n:
+                return
+
+    def save_resume(self, *basenames: str) -> List[str]:
+        """Save the full state to `<log_path>/<basename>.pth` for each of
+        `basenames` from one host snapshot, asynchronously unless
+        `training.async_checkpoints` is false."""
+        return self.checkpoints.save_resume(
+            self.log_path, self.model, self.teacher, self.optimizer, self.best_iou,
+            async_write=self.cfg["training"].get("async_checkpoints", True),
+            basenames=basenames)
+
+    def load_resume(self, path: str) -> None:
+        self.start_iter, self.best_iou = load_resume(path, self.model, self.teacher,
+                                                     self.optimizer)
+
+    def plateau_step(self, metric: float) -> None:
+        """`reduce_lr_on_plateau`: scale the update by `factor` after more
+        than `patience` validations without a better metric."""
+        p = self.plateau
+        if metric > p["best"]:
+            p["best"] = metric
+            p["count"] = 0
+        else:
+            p["count"] += 1
+            if p["count"] > p["patience"]:
+                p["count"] = 0
+                # the JAX state keeps lr_scale in float32
+                self.optimizer.lr_scale = float(np.float32(self.optimizer.lr_scale * p["factor"]))
+                logger.info("Plateau: lr_scale -> %.2e", self.optimizer.lr_scale)
+
+    def close(self) -> None:
+        """Stop the loaders' threads and close the metrics files."""
+        for it in (self._extra_iter, self.unlabeled_iter):
+            if it is not None:
+                it.close()
+        for loader in (self.train_loader, self.val_loader, self.unlabeled_loader):
+            if loader is not None:
+                loader.close()
+        self.writer.close()
+
+
+def _merge_shared_options(cfg: Dict[str, Any]) -> None:
+    """The monodepth options shared with `data` and `model`, in place
+    (reference train.py:156-160; JAX `Trainer.__init__`)."""
     mono = cfg.get("monodepth_options", {})
-    for section in ("data", "model"):  # shared options (reference train.py:156-160)
+    for section in ("data", "model"):
         cfg.setdefault(section, {})
         for k, v in mono.items():
             cfg[section].setdefault(k, v)
-    _check_supported(cfg)
+    cfg["data"].setdefault("frame_ids", mono.get("frame_ids", [0, -1, 1]))
+    cfg["data"].setdefault("num_scales", mono.get("num_scales", 4))
+    if "crop_h" in mono:
+        cfg["data"].setdefault("crop_h", mono["crop_h"])
+        cfg["data"].setdefault("crop_w", mono["crop_w"])
+    if "height" in mono:
+        cfg["data"].setdefault("img_size", [mono["height"], mono["width"]])
+
+
+def _build_loaders(cfg: Dict[str, Any], seed: int, pin_memory: bool):
+    """The train, validation and (semi-supervised) unlabeled loaders (JAX
+    `Trainer.__init__`, reference train.py:194-236)."""
     training = cfg["training"]
-    seed = cfg.get("seed", 42)
+    u = training.get("unlabeled_segmentation") or {}
+    only_unlabeled = u.get("only_unlabeled", True)
+    only_labeled = u.get("only_labeled", False)
+    if only_unlabeled and only_labeled:
+        raise ValueError("unlabeled_segmentation: only_unlabeled and only_labeled")
+    mix_use_gt = u.get("mix_use_gt", False)
+    need_offline_depth = (
+        (u.get("mix_mask") in ("depth", "depthcomp", "depthhist")
+         and not u.get("depthmix_online_depth", False))
+        or cfg["data"].get("depth_teacher") is not None)
+    if need_offline_depth and cfg["data"].get("dataset") != "synthetic":
+        raise not_ported("offline pseudo-depth (engine/depth_estimator.py) for "
+                         f"data.dataset {cfg['data'].get('dataset')!r}", "offline pseudo-depth")
+
+    data_cfg = dict(cfg["data"])
+    if data_cfg.get("dataset_seed") in (None, "same"):
+        data_cfg["dataset_seed"] = seed
+    if cfg["model"].get("provide_uncropped_for_pose", False):
+        data_cfg["load_color_full"] = True
+    if not need_offline_depth:
+        data_cfg.pop("generated_depth_dir", None)
+    # sequence frames only with the photometric loss, labels only with the
+    # segmentation loss (reference train.py:210-214)
+    load_sequence = training.get("monodepth_lambda", 0.0) != 0
+    load_labels = training.get("segmentation_lambda", 1.0) != 0
+    train_set = build_loader(data_cfg, "train", load_labels=load_labels,
+                             load_sequence=load_sequence)
+    val_set = build_loader({**data_cfg, "restrict_to_subset": None},
+                           data_cfg.get("val_split", "val"), load_labels=load_labels,
+                           load_sequence=load_sequence)
+    bs = training["batch_size"]
+    nw = cfg["data"].get("n_workers", 4)
+    train_loader = DataLoader(train_set, bs, shuffle=True, drop_last=True, num_workers=nw,
+                              pin_memory=pin_memory)
+    val_loader = DataLoader(val_set, training.get("val_batch_size", bs), shuffle=False,
+                            drop_last=False, num_workers=nw, pin_memory=pin_memory)
+    unlabeled_loader = None
+    if u:
+        u_data_cfg = dict(data_cfg)
+        mix_video = u.get("mix_video", False)
+        if mix_video:
+            if mix_use_gt or only_labeled or only_unlabeled:
+                raise ValueError("unlabeled_segmentation.mix_video excludes mix_use_gt, "
+                                 "only_labeled and only_unlabeled")
+            u_data_cfg.update({"only_sequences_with_segmentation": False,
+                               "restrict_to_subset": None})
+        u_set = build_loader(u_data_cfg, "train", load_labels=load_labels and not mix_video,
+                             load_sequence=load_sequence, load_labeled=not only_unlabeled,
+                             load_unlabeled=not only_labeled, load_onehot=mix_use_gt)
+        unlabeled_loader = DataLoader(u_set, bs, shuffle=True, drop_last=True,
+                                      num_workers=nw, pin_memory=pin_memory)
+    return train_loader, val_loader, unlabeled_loader
+
+
+def build_run(cfg: Dict[str, Any], device: str = "cuda:0", run_id: str = "run") -> Run:
+    """Build the config's run on `device` (JAX `Trainer.__init__`): expands
+    the config's `MachineConfig.X` paths and merges the shared options in
+    place, seeds the host's RNGs and torch, builds the loaders, the model
+    with its pretrained weights, the teacher and the optimizer, opens the
+    metrics writer in `training.log_path` (default `<LOG_DIR>/<run_id>`) and
+    resumes where `resume` or `auto_resume` says."""
+    paths = machine_paths()
+    expand_cfg_vars(cfg, paths)
+    _merge_shared_options(cfg)
+    training = cfg["training"]
+    seed = cfg.get("seed", training.get("seed", 42))
+    set_seeds(seed)
     torch.manual_seed(seed)
+    log_path = training.get("log_path") or os.path.join(paths["LOG_DIR"], run_id)
+    training["log_path"] = log_path
+    os.makedirs(log_path, exist_ok=True)
+
+    train_loader, val_loader, unlabeled_loader = _build_loaders(
+        cfg, seed, pin_memory=torch.device(device).type == "cuda")
+    n_classes = train_loader.dataset.n_classes
+    cfg["data"]["n_classes"] = n_classes
     step_cfg = step_config_from_cfg(cfg)
-    n_classes = cfg["data"].get("n_classes", 19)
-    batch_size = training["batch_size"]
+    if training.get("save_separate_monodepth_models", False) and training.get(
+            "save_monodepth_ema", False) and not step_cfg.use_ema:
+        raise ValueError("training.save_monodepth_ema needs the EMA teacher "
+                         "(training.unlabeled_segmentation)")
     model = build_model(cfg["model"], n_classes, amp=training.get("amp", False))
     apply_pretraining(model, cfg["model"], paths["DOWNLOAD_MODEL_DIR"])
     model = model.to(device)
-    return Run(model=model, teacher=make_teacher(model) if step_cfg.use_ema else None,
-               optimizer=build_optimizer(training, cfg["model"], model), step_cfg=step_cfg,
-               generator=torch.Generator(device=device).manual_seed(seed), device=device,
-               batch_size=batch_size,
-               height=cfg["data"].get("crop_h", cfg["data"].get("height", 512)),
-               width=cfg["data"].get("crop_w", cfg["data"].get("width", 1024)),
-               n_classes=n_classes, seed=seed,
-               val_batch_size=training.get("val_batch_size", batch_size),
-               n_val_samples=cfg["data"].get("n_samples", 16))
+
+    sched = training.get("lr_schedule") or {}
+    plateau = None
+    if sched.get("name") == "reduce_lr_on_plateau":
+        plateau = {"factor": sched.get("factor", 0.1), "patience": sched.get("patience", 10),
+                   "best": -np.inf, "count": 0}
+    es_cfg = training.get("early_stopping") or None
+    img_size = cfg["data"].get("img_size", (512, 1024))
+    run = Run(cfg=cfg, model=model, teacher=make_teacher(model) if step_cfg.use_ema else None,
+              optimizer=build_optimizer(training, cfg["model"], model), step_cfg=step_cfg,
+              generator=torch.Generator(device=device).manual_seed(seed), device=device,
+              train_loader=train_loader, val_loader=val_loader,
+              unlabeled_loader=unlabeled_loader, n_classes=n_classes,
+              batch_size=training["batch_size"],
+              height=cfg["data"].get("crop_h") or img_size[0],
+              width=cfg["data"].get("crop_w") or img_size[1],
+              log_path=log_path, writer=MetricsWriter(log_path), checkpoints=ResumeWriter(),
+              plateau=plateau,
+              early_stopping=EarlyStopping(logger=logger, **es_cfg) if es_cfg else None,
+              run_id=run_id)
+    try:
+        _resume(run, training)
+    except Exception:
+        run.close()
+        raise
+    return run
 
 
-def train_main(cfg: Dict[str, Any], device: str = "cuda:0",
-               run: Optional[Run] = None) -> List[Dict[str, float]]:
-    """Train the config's model for `training.train_iters` steps, on `run`
-    (as `build_run(cfg, device)` makes it) or on a new one.
+def _resume(run: Run, training: Dict[str, Any]) -> None:
+    """`resume` (a checkpoint path), else `auto_resume` (the run's
+    `last_model.pth`, where there is one), as the JAX trainer resumes."""
+    resume = training.get("resume")
+    if resume:
+        # a JAX full-state .msgpack raises in load_resume, whether or not it exists
+        if resume.endswith(".msgpack") or os.path.isfile(resume):
+            run.load_resume(resume)
+            logger.info("Loaded checkpoint %s (iter %d)", resume, run.start_iter)
+        else:
+            logger.info("No checkpoint found at %s", resume)
+    elif training.get("auto_resume", False):
+        last = os.path.join(run.log_path, "last_model.pth")
+        if os.path.isfile(last):
+            run.load_resume(last)
+            logger.info("Auto-resumed %s (iter %d)", last, run.start_iter)
 
-    Returns one record per step: its losses, `step_seconds` (host clock from
-    the step's start to its losses on the host, which waits for the device)
-    and `data_seconds` (making and moving the batch); after a validation also
-    its record (`Run.validate`) under keys prefixed `val/`.
-    """
-    if run is None:
-        run = build_run(cfg, device)
+
+def _write_training_scalars(run: Run, cfg: Dict[str, Any], records, step: int) -> None:
+    """At a print interval: resolve the pending records' losses (the one
+    wait for the device in the interval), log their means and write them with
+    the time per image, the learning rate and the host memory (JAX
+    `Trainer.train`, l. 326-361)."""
     training = cfg["training"]
-    print_interval = training.get("print_interval", 100)
-    logger.info("training %s on %s: batch %d at %dx%d, %d steps",
-                cfg["model"].get("backbone_name", "resnet101"), device, run.batch_size,
-                run.height, run.width, training["train_iters"])
+    meter = AverageMeterDict()
+    seconds = []
+    for r in records:
+        for k, v in r.items():
+            if isinstance(v, torch.Tensor):
+                r[k] = float(v)
+        meter.update({k: v for k, v in r.items() if k.endswith("loss")})
+        seconds.append(r["data_seconds"] + r["step_seconds"])
+    time_per_image = sum(seconds) / len(seconds) / training["batch_size"]
+    logger.info("Iter [%d/%d]  Loss: %.4f  Time/Image: %.4f", step + 1,
+                training["train_iters"], meter.avgs["total_loss"], time_per_image)
+    for k, v in meter.avgs.items():
+        run.writer.add_scalar("training/" + k, v, step + 1)
+    run.writer.add_scalar("training/time_per_image", time_per_image, step + 1)
+    base_lr = (training.get("optimizer") or {}).get("lr", 0.01)
+    run.writer.add_scalar("training/learning_rate", base_lr * float(
+        run.optimizer.factor_fn(step)) * run.optimizer.lr_scale, step + 1)
+    if importlib.util.find_spec("psutil") is not None:
+        import psutil
 
+        run.writer.add_scalar("training/memory", psutil.virtual_memory().used / 1e9, step + 1)
+
+
+def _loop(run: Run, cfg: Dict[str, Any]) -> List[Dict[str, float]]:
+    training = cfg["training"]
     train_iters = training["train_iters"]
+    print_interval = training.get("print_interval", 100)
     validating = training.get("val_interval") is not None
-    records = []
-    for step in range(train_iters):
-        t0 = time.perf_counter()
-        batch, unlabeled_batch = run.batches(step)
-        t1 = time.perf_counter()
-        metrics = run.step(batch, unlabeled_batch)
-        record = {k: float(v) for k, v in metrics.items()}
-        record.update(step_seconds=time.perf_counter() - t1, data_seconds=t1 - t0)
-        records.append(record)
-        if (step + 1) % print_interval == 0:
-            logger.info("Iter [%d/%d]  Loss: %.4f  seg %.4f  mono %.4f  step %.3f s",
-                        step + 1, train_iters, record["total_loss"],
-                        record["segmentation_loss"], record["mono_loss"],
-                        record["step_seconds"])
-        if validating and ((step + 1) % current_val_interval(cfg, step + 1) == 0
-                           or step + 1 == train_iters):
-            val = run.validate()
-            record.update({f"val/{k}": v for k, v in val.items()})
-            logger.info("Validation @%d: mIoU=%.4f  best %.4f  %.3f s per batch", step + 1,
-                        run.mIoU, run.best_iou, val["eval_seconds_per_batch"])
-    if training.get("save_separate_monodepth_models", False):
-        # component export for the SDE transfer chain (reference train.py:377-390)
-        log_path = training.get("log_path") or os.path.join(machine_paths()["LOG_DIR"], "run")
-        save_monodepth_models(log_path, run.model,
-                              include_encoder=not cfg["model"].get("freeze_backbone", False))
-        logger.info("SDE components exported to %s", log_path)
+    saving = training.get("save_model", True)
+    records: List[Dict[str, Any]] = []
+    pending: List[Dict[str, Any]] = []
+    step = run.start_iter
+    flag = True
+    if len(run.train_loader) == 0:
+        raise ValueError(f"the train set ({len(run.train_loader.dataset)} items) holds no "
+                         f"batch of {run.batch_size}")
+    run.tensorboard_training_images()
+    # JAX's loop tests `step <= train_iters` here, so that a run resumed at
+    # its last iteration takes steps until its epoch ends; this one takes none
+    while step + 1 < train_iters and flag:
+        epoch = iter(run.train_loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                host = next(epoch, None)
+                if host is None:
+                    break
+                step += 1
+                batch = run.to_device(host)
+                unlabeled = run.next_unlabeled()
+                t1 = time.perf_counter()
+                record: Dict[str, Any] = dict(run.step(batch, unlabeled))
+                record.update(data_seconds=t1 - t0, step_seconds=time.perf_counter() - t1)
+                records.append(record)
+                pending.append(record)
+                if (step + 1) % print_interval == 0:
+                    _write_training_scalars(run, cfg, pending, step)
+                    pending = []
+                if validating and ((step + 1) % current_val_interval(cfg, step + 1) == 0
+                                   or step + 1 == train_iters):
+                    val = run.validate(step)
+                    # JAX saves best, then last, with the same state: one
+                    # host snapshot writes both
+                    names = []
+                    if run.mIoU >= run.best_iou:
+                        run.best_iou = run.mIoU
+                        if saving:
+                            names.append("best_model")
+                    if training.get("save_last", True) and saving:
+                        names.append("last_model")
+                    t_save = time.perf_counter()
+                    if names:
+                        run.save_resume(*names)
+                    val["save_seconds"] = time.perf_counter() - t_save
+                    val["best_iou"] = run.best_iou
+                    record.update({f"val/{k}": v for k, v in val.items()})
+                    logger.info("Validation @%d: mIoU=%.4f  best %.4f  %.3f s per batch",
+                                step + 1, run.mIoU, run.best_iou,
+                                val["eval_seconds_per_batch"])
+                    if run.plateau is not None:
+                        run.plateau_step(run.mIoU)
+                    if run.early_stopping is not None and not run.early_stopping.step(run.mIoU):
+                        flag = False
+                        break
+                if step + 1 == train_iters:
+                    flag = False
+                    break
+        finally:
+            epoch.close()
+    run.checkpoints.wait_for_saves()  # land the write in flight before returning
+    for r in pending:
+        for k, v in r.items():
+            if isinstance(v, torch.Tensor):
+                r[k] = float(v)
+    return records
+
+
+def train_main(cfg: Dict[str, Any], device: str = "cuda:0", run: Optional[Run] = None,
+               run_id: str = "run") -> List[Dict[str, float]]:
+    """Train the config's model on `run` (as `build_run(cfg, device, run_id)`
+    makes it; the caller closes it) or on a new one, as the JAX trainer does
+    (see the module docstring); writes `cfg.yml` and the run's log file into
+    its log path.
+
+    Returns one record per step: its losses, `data_seconds` (host time
+    waiting on the loaders, the copies to the device included) and
+    `step_seconds` (host time of the step's call, which returns once its
+    work is queued on the device); after a validation also its record
+    (`Run.validate`, with `best_iou` after the comparison and
+    `save_seconds`, the host time the loop waited for the checkpoint save)
+    under keys prefixed `val/`. The losses are read from the device at each print
+    interval and at the end.
+    """
+    own_run = run is None
+    if own_run:
+        run = build_run(cfg, device, run_id)
+    training = cfg["training"]
+    with open(os.path.join(run.log_path, "cfg.yml"), "w") as f:
+        yaml.safe_dump(cfg, f)
+    file_logger = get_logger(run.log_path)
+    handler = file_logger.handlers[-1]
+    logger.info("training %s on %s: batch %d at %dx%d, steps %d to %d",
+                cfg["model"].get("backbone_name", "resnet101"), run.device, run.batch_size,
+                run.height, run.width, run.start_iter + 1, training["train_iters"] - 1)
+    try:
+        records = _loop(run, cfg)
+        if training.get("save_separate_monodepth_models", False):
+            # component export for the SDE transfer chain (reference train.py:377-390)
+            teacher = run.teacher if training.get("save_monodepth_ema", False) else None
+            save_monodepth_models(run.log_path, run.model,
+                                  include_encoder=not cfg["model"].get("freeze_backbone", False),
+                                  params_from=teacher)
+            logger.info("SDE components exported to %s", run.log_path)
+    finally:
+        file_logger.removeHandler(handler)
+        handler.close()
+        if own_run:
+            run.close()
     return records

@@ -8,8 +8,9 @@ package's `apply_pretraining`, and the dec5 -> dec6 chain through
   gives equal encoder, pose encoder (conv1 repeated over the two frames and
   halved) and ImageNet encoder, exactly.
 - A missing `mono*` component raises FileNotFoundError, a missing ImageNet
-  file prints the warning and keeps the initialization, a `.msgpack` export
-  raises NotImplementedError.
+  file prints the warning and keeps the initialization, a `.msgpack` file
+  that is not a flax component tree raises ValueError (the JAX package's
+  own exports load: tests/test_torch_port_trainer_io.py).
 No jitted step: the conversions are numpy. Every `mono*` component that the
 JAX package reads is written first (a missing one would make it try a
 download).
@@ -132,10 +133,11 @@ def test_missing_and_unported_weights(tmp_path, capsys):
     with pytest.raises(FileNotFoundError, match="depth"):
         checkpoints.apply_pretraining(port, dict(SDE_CFG, depth_pretraining=MONO),
                                       str(tmp_path))
-    # the JAX package's own export format
+    # the JAX package's export format, read in place of the .pth; an empty
+    # msgpack map is no component tree
     os.makedirs(tmp_path / MONO)
     (tmp_path / MONO / "depth.msgpack").write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*trainer I/O"):
+    with pytest.raises(ValueError, match="no params"):
         checkpoints.apply_pretraining(port, dict(SDE_CFG, depth_pretraining=MONO),
                                       str(tmp_path))
 
@@ -144,6 +146,11 @@ def test_new_modules_import_no_jax():
     code = (
         "import sys\n"
         f"import {PKG}.engine.checkpoints, {PKG}.config.machine, {PKG}.engine.trainer\n"
+        f"import {PKG}.cli.train_cli, {PKG}.cli.profile_cli, {PKG}.utils.misc\n"
+        f"import {PKG}.engine.writer, {PKG}.engine.early_stopping\n"
+        f"import {PKG}.data.prepare_cityscapes, {PKG}.data.synthetic_dataset\n"
+        f"from {PKG}.data import registry, loader, base, utils, cityscapes, camvid, mapillary\n"
+        "registry.get_loader('cityscapes')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', "
         "'improving_segmentation_with_selfsupervised_depth_tpu'))\n"
@@ -159,9 +166,11 @@ def _tiny(name):
         cfg = yaml.safe_load(fp)
     cfg["model"].update(backbone_name="resnet18",
                         depth_args={"intermediate_aspp": True, "aspp_rates": [1, 2]})
-    cfg["monodepth_options"].update(crop_h=32, crop_w=64)
+    # validation runs at the uncropped size, as in the JAX trainer
+    cfg["monodepth_options"].update(height=32, width=64, crop_h=32, crop_w=64)
     cfg["training"].update(batch_size=2, val_batch_size=2)
-    cfg["data"]["n_samples"] = 2
+    # three batches an epoch: each of the 3 steps sees other frames
+    cfg["data"]["n_samples"] = 6
     return cfg
 
 
@@ -187,7 +196,8 @@ def test_dec5_then_dec6_through_train_main_shrunk(tmp_path, monkeypatch):
                        src.state_dict()["models.pose.net.3.weight"])
     records = trainer.train_main(cfg5, "cpu", run=run5)
     assert len(records) == 3 and all(np.isfinite(v) for r in records for v in r.values())
-    assert "val/depth/abs_rel" in records[1] and "val/Mean IoU" not in records[1]
+    # val_interval 2: validated after steps 1 and 3, as the JAX trainer
+    assert "val/depth/abs_rel" in records[0] and "val/Mean IoU" not in records[0]
     params = dict(run5.model.models["encoder"].named_parameters())
     for k, v in run5.model.models["encoder"].state_dict().items():
         if k in params:  # frozen
@@ -196,7 +206,8 @@ def test_dec5_then_dec6_through_train_main_shrunk(tmp_path, monkeypatch):
             assert not torch.equal(v, enc[k]), k
     out = cfg5["training"]["log_path"]
     assert out == str(models / "mono_cityscapes_1024x512_r101dil_aspp_dec5_posepretrain_crop512x512bs4")
-    assert sorted(os.listdir(out)) == ["depth.pth", "pose.pth", "pose_encoder.pth"]
+    assert sorted(f for f in os.listdir(out) if f.endswith(".pth")) == [
+        "depth.pth", "pose.pth", "pose_encoder.pth"]
     checkpoints.save_component(out, run5.model, "encoder")
 
     cfg6 = _tiny("sde_dec6_crop_synthetic.yml")

@@ -242,13 +242,15 @@ def test_eval_step_matches_jax(jax_eval, case):
         assert not port.use_pose_net
 
 
-def test_train_main_validates_at_the_interval_and_the_last_step():
-    cfg = _tiny_train_cfg()
+def test_train_main_validates_at_the_interval_and_the_last_step(tmp_path):
+    """The JAX trainer's schedule: train_iters 3 and val_interval 2 run 2
+    steps and validate after steps 1 ((1 + 1) % 2 == 0) and 2 (the last)."""
+    cfg = _tiny_train_cfg(log_path=tmp_path)
     cfg["training"].update(train_iters=3, val_interval=2, val_batch_size=2)
     cfg["data"]["n_samples"] = 3
     records = trainer.train_main(cfg, device="cpu")
     validated = [i + 1 for i, r in enumerate(records) if "val/Mean IoU" in r]
-    assert validated == [2, 3]
+    assert validated == [1, 2]
     best = -100.0
     for r in records:
         assert all(np.isfinite(v) for v in r.values())
@@ -260,5 +262,6 @@ def test_train_main_validates_at_the_interval_and_the_last_step():
     # the validation set is the same at every validation
     run = trainer.build_run(cfg, device="cpu")
     sets = [[b["lbl"] for b in run.val_batches()] for _ in range(2)]
+    run.close()
     assert [len(b) for b in sets[0]] == [2, 1]
     assert all(torch.equal(a, b) for a, b in zip(*sets))

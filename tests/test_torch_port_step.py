@@ -127,7 +127,10 @@ def test_port_imports_no_jax():
     assert out.returncode == 0, out.stderr
 
 
-def _tiny_train_cfg(name="sde_supervised_synthetic.yml"):
+def _tiny_train_cfg(name="sde_supervised_synthetic.yml", log_path=None):
+    """A packaged config at resnet18, 32x64, batch 2 and 2 steps
+    (`train_iters` 3: the loop runs train_iters - 1 steps, as the JAX
+    trainer's), writing into `log_path`."""
     import yaml
 
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -138,7 +141,9 @@ def _tiny_train_cfg(name="sde_supervised_synthetic.yml"):
     cfg["model"].update(backbone_name="resnet18",
                         depth_args={"intermediate_aspp": True, "aspp_rates": [1, 2]})
     cfg["monodepth_options"].update(height=32, width=64)
-    cfg["training"].update(batch_size=2, train_iters=2)
+    cfg["training"].update(batch_size=2, train_iters=3)
+    if log_path is not None:
+        cfg["training"]["log_path"] = str(log_path)
     return cfg
 
 
@@ -150,14 +155,15 @@ def test_train_cli_runs_the_packaged_config_shrunk(tmp_path, caplog):
     from improving_segmentation_with_selfsupervised_depth_tpu_torch.cli.train_cli import main
 
     path = tmp_path / "tiny.yml"
-    path.write_text(yaml.safe_dump(_tiny_train_cfg()))
+    path.write_text(yaml.safe_dump(_tiny_train_cfg(log_path=tmp_path / "run")))
     with caplog.at_level(logging.INFO, logger="segsde_torch"):
         main(["--config", str(path), "--device", "cpu"])
     iters = [r.getMessage() for r in caplog.records if r.getMessage().startswith("Iter [")]
-    assert len(iters) == 2 and iters[-1].startswith("Iter [2/2]")
+    # the JAX trainer's numbering: its first step logs as iteration 2
+    assert len(iters) == 2 and iters[-1].startswith("Iter [3/3]")
 
 
-def test_train_main_runs_the_exp212_config_shrunk():
+def test_train_main_runs_the_exp212_config_shrunk(tmp_path):
     """The packaged exp-212 config (PAD, EMA teacher, online DepthMix, fused
     K2/K3 error) through train_main on the CPU, shrunk: the plain versions run
     and no kernel is launched."""
@@ -166,7 +172,7 @@ def test_train_main_runs_the_exp212_config_shrunk():
     )
     from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops.cuda import reprojection
 
-    cfg = _tiny_train_cfg("exp212_pad_online_synthetic.yml")
+    cfg = _tiny_train_cfg("exp212_pad_online_synthetic.yml", log_path=tmp_path)
     assert cfg["training"]["fused_reprojection"] and cfg["model"]["segmentation_name"] == "mtl_pad"
     launches = reprojection.reprojection_error_grad.launches
     records = train_main(cfg, device="cpu")
@@ -179,21 +185,18 @@ def test_train_main_runs_the_exp212_config_shrunk():
 @pytest.mark.parametrize("section,key,value", [
     ("model", "remat", True),
     ("training", "optimizer", {"name": "adamax", "lr": 1e-3}),
-    ("training", "early_stopping", {"patience": 5}),
     ("model", "pose_model_input", "all"),
     ("training", "fuse_unlabeled_forward", True),
     ("training", "unlabeled_segmentation", {"mix_mask": "depthcomp", "debug_images": True}),
-    ("training", "save_model", True),
-    ("data", "dataset", "cityscapes"),
     ("model", "freeze_pose", True),  # with the config's clip_grad_norm
     ("training", "resume", "best_model.msgpack"),
 ])
-def test_what_the_slice_does_not_run_raises(section, key, value):
+def test_what_the_slice_does_not_run_raises(section, key, value, tmp_path):
     from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine.trainer import (
         train_main,
     )
 
-    cfg = _tiny_train_cfg()
+    cfg = _tiny_train_cfg(log_path=tmp_path)
     cfg[section][key] = value
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_main(cfg, device="cpu")

@@ -63,7 +63,23 @@ Phases, each reported on its own lines:
      between two syncs, in turns: fed by the loaders, from host batches the
      loaders pinned beforehand (the copies and transposes alone, no loader
      thread running) and from the same batches resident on the device, with
-     the time waiting on the loaders and issuing the copies.
+     the time waiting on the loaders and issuing the copies;
+  8. exp211 (automatic label selection, `configs/exp211_label_selection_*.yml`):
+     seeded stand-ins of the ResNet-101 dec6 depth teacher and of
+     `imnet/resnet50.pth` in a temporary SDT_MODEL_DIR; (a) on a generated
+     Cityscapes tree (16 + 8 frames) the teacher writes its 24 pseudo-depth
+     PNGs (time per image; a second call writes none; 2 images within 1
+     grey level of the CPU's), then the driver's `train_on_subset` trains
+     8 fixed frames for 3 steps of batch 2 at 512x512 reading them,
+     validated at 512x1024 after steps 1 and 3, and returns its
+     `best_model`; the step's profile (`profile_cli.measure`), peak memory,
+     launches per step and per validation batch (K1-K3: 0); (b)
+     `label_selection_main` on 24 synthetic samples at 512x1024, rounds
+     [4, 8] of 3 steps, timed by part (teacher features and scoring per
+     sample, distances, IFP, each round), with its subsets checked (sizes,
+     distinct, nested, the subset files, the models removed), then
+     `acquire_scores` on 4 samples card against CPU (cuDNN TF32 off):
+     label criteria and distances within 1e-3.
 The last three lines are the card's name and power limit (as at the
 start), the kernels' JSON record and `{"ok": true, "device": {...}}`. Any failure raises, so the exit code is
 nonzero and no `ok` line is printed. There is no CPU fallback.
@@ -91,14 +107,23 @@ import torch
 import torch.nn.functional as F
 import yaml
 
+from improving_segmentation_with_selfsupervised_depth_tpu_torch.cli import profile_cli
+from improving_segmentation_with_selfsupervised_depth_tpu_torch.config.machine import (
+    expand_cfg_vars,
+)
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.data import synthetic
+from improving_segmentation_with_selfsupervised_depth_tpu_torch.data.synthetic_dataset import (
+    SyntheticDataset,
+)
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine import (
     checkpoints,
+    depth_estimator,
     optim,
     state,
     train_steps,
     trainer,
 )
+from improving_segmentation_with_selfsupervised_depth_tpu_torch.label_selection import driver
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.models import joint
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.models.pose_decoder import (
     PoseDecoder,
@@ -1363,6 +1388,351 @@ def phase_cityscapes_exp212(records):
     return launches
 
 
+def _exp211_weights(model_dir, teacher_name):
+    """Seeded stand-in weights in the published layouts: the ResNet-101
+    dilated dec6 ASPP depth teacher (`<teacher>/{encoder,depth}.pth`) and
+    `imnet/resnet50.pth` (torchvision keys). The teacher's decoder has no
+    BatchNorm, so its random convolutions grow the activations layer by
+    layer until the ELUs saturate at -1 (half the u3 channels came out
+    constant, and the features' normalization divided by their std of 0):
+    each decoder convolution is scaled, in forward order, to unit output
+    std on two synthetic frames, and the running statistics are then set
+    from them (a trained teacher's are, by training)."""
+    imnet = Path(model_dir) / "imnet"
+    imnet.mkdir(parents=True)
+    torch.save(_torchvision_resnet(50, 4), imnet / "resnet50.pth")
+    torch.manual_seed(5)
+    teacher = joint.build_model({
+        "backbone_name": "resnet101", "replace_stride_with_dilation": [False, False, True],
+        "segmentation_name": None, "disable_pose": True, "frame_ids": [0],
+        "depth_args": {"intermediate_aspp": True, "aspp_rates": [6, 12, 18],
+                       "num_ch_dec": [64, 128, 128, 256, 256]}}, 19).to("cuda:0")
+    frames = SyntheticDataset(n_samples=2, split="train", img_size=(512, 1024), frame_idxs=(0,),
+                              num_scales=1, load_labels=False, load_sequence=False)
+    x = torch.stack([torch.from_numpy(frames[i]["color_0_0"]) for i in range(2)])
+    batch = {"color_aug_0_0": x.permute(0, 3, 1, 2).contiguous().to("cuda:0")}
+    with torch.no_grad():
+        teacher.train()
+        for conv in [m for m in teacher.models["depth"].modules()
+                     if isinstance(m, torch.nn.Conv2d)]:
+            out = []
+            hook = conv.register_forward_hook(lambda m, i, o: out.append(o))
+            teacher(batch)
+            hook.remove()
+            conv.weight.div_(out[0].std())
+        bns = [m for m in teacher.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+        for m in bns:
+            m.momentum = 1.0
+        teacher(batch)
+        for m in bns:
+            m.momentum = 0.1
+    for name in ("encoder", "depth"):
+        checkpoints.save_component(str(Path(model_dir) / teacher_name), teacher, name)
+    del teacher, batch
+    torch.cuda.empty_cache()
+
+
+def _exp211_cityscapes(tmp, label):
+    """(a): the depth teacher's PNGs on a generated Cityscapes tree, card
+    against CPU on 2 images, then one round of training on 8 fixed frames
+    through the driver's `train_on_subset` and its step's profile. Returns
+    the launches of the round and the model file it saved."""
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    write_cityscapes_tree(tmp / "cityscapes")
+    print(f"[{label}] wrote the tree (16 train, 8 val frames) in {time.perf_counter() - t0:.2f} s")
+    cfg = _packaged_cfg("exp211_label_selection_cityscapes.yml")
+    cfg["data"].update(path=str(tmp / "cityscapes"), generated_depth_dir=str(tmp / "depth"))
+    cfg["training"]["log_path"] = str(tmp / "ls")
+    os.makedirs(tmp / "ls")
+    teacher_cfg = copy.deepcopy(cfg)
+    expand_cfg_vars(teacher_cfg)
+    trainer._merge_shared_options(teacher_cfg)
+
+    # the teacher's PNGs, with cuDNN's TF32 off: the 8-bit quantization of a
+    # min-max normalized map turns a small disparity error into grey levels
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        est = depth_estimator.DepthEstimator(teacher_cfg, "cuda:0")
+        t0 = time.perf_counter()
+        written = est.prepare_depth_estimates()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        again = depth_estimator.DepthEstimator(teacher_cfg, "cuda:0").prepare_depth_estimates()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    per_image = [t / 4 for t in est.batch_seconds[1:]]
+    print(f"[{label}] depth teacher (ResNet-101 dec6 at 512x1024, batch 4, cuDNN TF32 off): "
+          f"{written} PNGs in {wall:.3f} s, the first batch (model build and weights "
+          f"included) {est.batch_seconds[0]:.3f} s, then {statistics.median(per_image):.4f} s "
+          f"per image (median; forward, copy to the host, 8-bit PNG write); a second call "
+          f"wrote {again}")
+    if written != 24 or again != 0:
+        raise AssertionError(f"{label}: {written} PNGs written, then {again}")
+    # the teacher forward alone, per image, with TF32 at the run's setting
+    x = torch.rand((4, 3, 512, 1024), device="cuda:0")
+    with torch.no_grad():
+        ms = _time_ms(lambda: est.model.predict_test_disp({"color_0_0": x}), reps=5)
+    print(f"[{label}] teacher forward alone (CUDA events, cuDNN TF32 {tf32}): "
+          f"{ms / 4:.3f} ms per image at batch 4")
+
+    # card against CPU on the first 2 train images, read back as the dataset reads them
+    sub = [est.train_ds[i] for i in range(2)]
+    color = torch.stack([torch.from_numpy(it["color_0_0"]) for it in sub]).permute(0, 3, 1, 2)
+    cpu = depth_estimator.DepthEstimator(teacher_cfg, "cpu")
+    cpu.depth_dir = str(tmp / "depth_cpu")
+    cpu._init_model()
+    with torch.no_grad():
+        disp = cpu.model.predict_test_disp({"color_0_0": color})["disp_0"][:, 0].numpy()
+    cpu._write([it["filename"] for it in sub], disp)
+    worst, share = 0, 0.0
+    for it in sub:
+        a = np.asarray(Image.open(est.build_filename(it["filename"])), np.int16)
+        b = np.asarray(Image.open(cpu.build_filename(it["filename"])), np.int16)
+        worst = max(worst, int(np.abs(a - b).max()))
+        share = max(share, float((a != b).mean()))
+    print(f"[{label}] PNGs card vs CPU on 2 images: max |diff| {worst} grey levels, on "
+          f"{100 * share:.4f}% of the pixels at most")
+    if worst > 1:
+        raise AssertionError(f"{label}: the card's PNGs lie {worst} grey levels from the CPU's")
+    del x, cpu
+    torch.cuda.empty_cache()
+
+    # one round through the driver on a fixed subset of 8 train frames, 3 steps,
+    # validated after steps 1 and 3 (val_interval 2)
+    subset = list(range(8))
+    captured = {}
+
+    def train_main(cfg_, device, run):
+        captured["records"] = trainer.train_main(cfg_, device, run=run)
+        captured["n_val_batches"] = len(run.val_loader)
+        return captured["records"]
+
+    saved_train_main, driver.train_main = driver.train_main, train_main
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    try:
+        t0 = time.perf_counter()
+        model_file = driver.train_on_subset(cfg, subset, 4, device="cuda:0")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        driver.train_main = saved_train_main
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    records = captured["records"]
+    _check_validations(label, records, [1, 3])
+    for i, r in enumerate(records, start=1):
+        print(f"[{label}] step {i}: total_loss {r['total_loss']:.6f} segmentation_loss "
+              f"{r['segmentation_loss']:.6f} pseudo_depth_loss {r['pseudo_depth_loss']:.6f} "
+              f"waiting on the loaders {r['data_seconds']:.4f} s, dispatch "
+              f"{r['step_seconds']:.4f} s" + (
+                  f"; validation mIoU {r['val/Mean IoU']:.6f}, depth/abs_rel "
+                  f"{r['val/depth/abs_rel']:.6f}, {r['val/eval_seconds_per_batch']:.4f} s per "
+                  f"batch of 2 at 512x1024" if "val/Mean IoU" in r else ""))
+    if not (len(records) == 3 and all(math.isfinite(v) for r in records for v in r.values())
+            and all(r["pseudo_depth_loss"] > 0 for r in records)):
+        raise AssertionError(f"{label}: records {records}")
+    if not os.path.isfile(model_file) or Path(model_file).name != "best_model.pth":
+        raise AssertionError(f"{label}: train_on_subset returned {model_file}")
+    print(f"[{label}] train_on_subset (8 frames, 3 steps, 2 validations over "
+          f"{captured['n_val_batches']} batches) in {wall:.3f} s, returned "
+          f"{Path(model_file).relative_to(tmp)}; peak memory allocated {peak / 2**30:.3f} GiB; "
+          f"launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: the exp-211 path launched {launches}")
+
+    # the step's profile (profile_cli's method) and launches per step and per
+    # validation batch, on a run of the same config and subset
+    run_cfg = copy.deepcopy(cfg)
+    run_cfg["data"]["restrict_to_subset"] = {"mode": "fixed", "n_subset": 8, "subset": subset}
+    run_cfg["training"]["log_path"] = str(tmp / "profile")
+    run = trainer.build_run(run_cfg, "cuda:0")
+    try:
+        batches = [run.device_batches() for _ in range(2)]
+        val_batch = next(run.val_batches())
+    finally:
+        run.close()
+    m = profile_cli.measure(run, batches)
+    classes = sorted(m["by_class"].items(), key=lambda kv: -kv[1][0])
+    n_kernels = sum(n for _, n in m["by_class"].values()) / profile_cli.PROFILED
+    print(f"[{label}] step (ResNet-50 + dec9, batch 2 at 512x512, Adam): median "
+          f"{m['median_s']:.4f} s of {len(m['step_s'])} (min {min(m['step_s']):.4f}, max "
+          f"{max(m['step_s']):.4f}); device {m['device_ms']:.2f} ms per step, "
+          f"{n_kernels:,.0f} kernels; idle share {m['idle']:.4f}; peak memory allocated "
+          f"{m['peak_bytes'] / 2**30:.3f} GiB; by class (ms, kernels per step): " + ", ".join(
+              f"{c} {ms:.2f} ({n / profile_cli.PROFILED:,.0f})" for c, (ms, n) in classes))
+    per_step = _count_launches(lambda: run.step(*batches[0]))
+    gen = torch.Generator(device="cuda:0").manual_seed(0)
+    per_val = _count_launches(lambda: train_steps.eval_step(run.model, val_batch, run.step_cfg,
+                                                            generator=gen))
+    eval_ms = _time_ms(lambda: train_steps.eval_step(run.model, val_batch, run.step_cfg,
+                                                     generator=gen), reps=5)
+    print(f"[{label}] launches of one train step {per_step}, of one validation batch "
+          f"{per_val}; a validation batch (2 at 512x1024) {eval_ms:.2f} ms (CUDA events)")
+    if any(per_step.values()) or any(per_val.values()):
+        raise AssertionError(f"{label}: launches {per_step}, {per_val}")
+    del run, batches, val_batch
+    torch.cuda.empty_cache()
+    return launches, model_file
+
+
+def _exp211_label_selection(tmp, label, model_file):
+    """(b): label_selection_main on the synthetic exp-211 config at full
+    width, timed by part, then acquire_scores card against CPU on 4 samples
+    from `model_file`. Returns the loop's launches."""
+    cfg = _packaged_cfg("exp211_label_selection_synthetic.yml")
+    cfg["training"]["log_path"] = str(tmp / "ls_synthetic")
+    scoring_calls, ifp_seconds, rounds = [], [], []
+    saved = {k: getattr(driver, k) for k in ("acquire_scores", "iterative_farthest_point",
+                                             "train_on_subset", "train_main")}
+
+    def acquire_scores(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = saved["acquire_scores"](*args, **kwargs)
+        scoring_calls.append((time.perf_counter() - t0, out[1]["seconds"], len(out[0])))
+        return out
+
+    def iterative_farthest_point(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = saved["iterative_farthest_point"](*args, **kwargs)
+        ifp_seconds.append(time.perf_counter() - t0)
+        return out
+
+    def train_on_subset(cfg_, labeled, train_iters, model_file=None, device="cuda:0"):
+        t0 = time.perf_counter()
+        out = saved["train_on_subset"](cfg_, labeled, train_iters, model_file, device=device)
+        rounds[-1]["seconds"] = time.perf_counter() - t0
+        return out
+
+    def train_main(cfg_, device, run):
+        rounds.append({"records": saved["train_main"](cfg_, device, run=run),
+                       "n_val_batches": len(run.val_loader)})
+        return rounds[-1]["records"]
+
+    for k, fn in (("acquire_scores", acquire_scores),
+                  ("iterative_farthest_point", iterative_farthest_point),
+                  ("train_on_subset", train_on_subset), ("train_main", train_main)):
+        setattr(driver, k, fn)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    try:
+        t0 = time.perf_counter()
+        driver.label_selection_main(cfg, device="cuda:0")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for k, fn in saved.items():
+            setattr(driver, k, fn)
+    launches = _read_launches()
+    base = Path(cfg["training"]["log_path"])  # <log_path>/<name> after the call
+    print(f"[{label}] label_selection_main: 24 synthetic samples at 512x1024, rounds "
+          f"[4, 8] of 3 steps, in {wall:.3f} s; peak memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches}")
+    for i, (secs, parts, n_scores) in enumerate(scoring_calls, start=1):
+        teacher = parts["teacher"]
+        score = parts["score"]
+        print(f"[{label}] scoring call {i}: {secs:.3f} s for {len(parts['load'])} samples "
+              f"({n_scores} scores): loader {statistics.median(parts['load']):.4f} s, teacher "
+              f"u3 features {statistics.median(teacher):.4f} s" + (
+                  f", student scoring (512x1024 forward at batch 1) "
+                  f"{statistics.median(score):.4f} s" if score else "")
+              + f" per sample (medians; first teacher sample {teacher[0]:.4f} s); distance "
+              f"matrix {parts['distances']:.4f} s")
+    print(f"[{label}] IFP: " + ", ".join(f"{t * 1e3:.3f} ms" for t in ifp_seconds))
+    for n, r in zip((4, 8), rounds):
+        vals = [v for v in r["records"] if "val/eval_seconds_per_batch" in v]
+        print(f"[{label}] round nlabels{n}: train_on_subset {r['seconds']:.3f} s (a new "
+              f"run, {len(r['records'])} steps, dispatch " + " ".join(
+                  f"{v['step_seconds']:.4f}" for v in r["records"]) + " s; "
+              f"{len(vals)} validations of {r['n_val_batches']} batches at "
+              + ", ".join(f"{v['val/eval_seconds_per_batch']:.4f}" for v in vals)
+              + " s per batch, the loop waiting for the best and last checkpoints "
+              + ", ".join(f"{v['val/save_seconds']:.3f}" for v in vals)
+              + " s; then the returned best_model's save)")
+    subsets = []
+    for n in (4, 8):
+        path = base / f"nlabels{n}_subset.json"
+        if not path.is_file():
+            raise AssertionError(f"{label}: no {path.name}")
+        with open(path) as f:
+            subsets.append(json.load(f))
+    print(f"[{label}] chosen subsets: {subsets[0]} then {subsets[1]}")
+    left = sorted(str(p.relative_to(base)) for p in base.rglob("best_model.pth"))
+    if not ([len(s) for s in subsets] == [4, 8] and len(set(subsets[1])) == 8
+            and set(subsets[0]) <= set(subsets[1]) and max(subsets[1]) < 24):
+        raise AssertionError(f"{label}: subsets {subsets}")
+    if left or len(rounds) != 2 or len(scoring_calls) != 2:
+        raise AssertionError(f"{label}: models left {left}, {len(rounds)} rounds, "
+                             f"{len(scoring_calls)} scoring calls")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: the exp-211 path launched {launches}")
+
+    # acquire_scores card against CPU on 4 samples from one model file, with
+    # cuDNN's TF32 off on the card (f32 against f32)
+    samples = subsets[0]
+    check = copy.deepcopy(cfg)
+    check["training"]["log_path"] = str(tmp / "ls_check")
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for device in ("cuda:0", "cpu"):
+            t0 = time.perf_counter()
+            out[device] = driver.acquire_scores(check, samples, samples, model_file,
+                                                depth_ifp_w=1, device=device)
+            print(f"[{label}] acquire_scores on 4 samples on {device}: "
+                  f"{time.perf_counter() - t0:.2f} s")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    (card_scores, card_d), (cpu_scores, cpu_d) = out["cuda:0"], out["cpu"]
+    crit = np.array([s["label_criterion"] for s in card_scores])
+    crit_cpu = np.array([s["label_criterion"] for s in cpu_scores])
+    dist, dist_cpu = np.asarray(card_d["distances"]), np.asarray(cpu_d["distances"])
+    rel_c = float(np.max(np.abs(crit - crit_cpu) / np.abs(crit_cpu)))
+    rel_d = float(np.max(np.abs(dist - dist_cpu)) / np.max(np.abs(dist_cpu)))
+    print(f"[{label}] acquire_scores card vs CPU: label criteria {crit.ravel().tolist()} "
+          f"(max relative difference {rel_c:.3e}), distances max difference {rel_d:.3e} "
+          f"of the largest")
+    if [s["idx"] for s in card_scores] != [s["idx"] for s in cpu_scores] \
+            or not rel_c <= 1e-3 or not rel_d <= 1e-3:
+        raise AssertionError(f"{label}: acquire_scores card vs CPU {rel_c}, {rel_d}")
+    return launches
+
+
+def phase_exp211():
+    """exp-211, automatic label selection (see the module docstring): seeded
+    stand-in weights in a temporary SDT_MODEL_DIR, then the file path on a
+    generated Cityscapes tree and the whole loop on synthetic frames."""
+    saved_env = {k: os.environ.get(k) for k in ("SDT_MODEL_DIR",)}
+    tmp = Path(tempfile.mkdtemp(prefix="exp211_"))
+    model_dir = tmp / "models"
+    os.environ["SDT_MODEL_DIR"] = str(model_dir)
+    launches = {}
+    try:
+        cfg = _packaged_cfg("exp211_label_selection_synthetic.yml")
+        _exp211_weights(model_dir, cfg["data"]["depth_teacher"])
+        print(f"[exp211] stand-in weights (seeded, random) in {model_dir.name}: "
+              f"{sorted(str(p.relative_to(model_dir)) for p in model_dir.rglob('*.pth'))}")
+        t0 = time.perf_counter()
+        launches["exp211_cityscapes"], model_file = _exp211_cityscapes(tmp, "exp211_cityscapes")
+        t1 = time.perf_counter()
+        launches["exp211_label_selection"] = _exp211_label_selection(
+            tmp, "exp211_label_selection", model_file)
+        print(f"[exp211] phase times: cityscapes {t1 - t0:.1f} s, label selection "
+              f"{time.perf_counter() - t1:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
     card = phase_device()
@@ -1376,6 +1746,7 @@ def main():
         launches = phase_slices()
         launches.update(phase_sde_pretrain())
         launches.update(phase_cityscapes_exp212(records))
+        launches.update(phase_exp211())
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     main_path = launches["exp212_pad_online_cityscapes"]

@@ -78,6 +78,48 @@ def _step(run, batch, unlabeled):
     return time.perf_counter() - t0, losses
 
 
+def measure(run, batches, steps: int = STEPS, profiled: int = PROFILED):
+    """Time `run`'s step on `batches` (a list of (labeled, unlabeled or
+    None) device batches, taken in turn): one warm-up step, `steps` timed
+    steps (peak memory over them) and `profiled` steps under
+    `torch.profiler`. Returns the times, the peak memory, the device kernel
+    time per step with its split by class and by kernel name
+    ({key: [ms per step, launches over the profiled steps]}), the idle share
+    of an unprofiled step and the last step's losses."""
+    first, losses = _step(run, *batches[0])
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(steps):
+        secs, losses = _step(run, *batches[i % len(batches)])
+        times.append(secs)
+    peak = torch.cuda.max_memory_allocated()
+    median = statistics.median(times)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for i in range(profiled):
+            _step(run, *batches[i % len(batches)])
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t0
+    by_class = defaultdict(lambda: [0.0, 0])
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = e.device_time_total / 1e3 / profiled  # us -> ms per step
+        for table, key in ((by_class, classify(e.name)), (by_name, e.name)):
+            table[key][0] += ms
+            table[key][1] += 1
+    device_ms = sum(v[0] for v in by_class.values())
+    if device_ms <= 0:
+        raise SystemExit("profile_cli: the profiler recorded no device time")
+    return {"first_s": first, "step_s": times, "median_s": median, "peak_bytes": peak,
+            "device_ms": device_ms, "window_s": window, "idle": 1 - device_ms / (median * 1e3),
+            "by_class": by_class, "by_name": by_name, "losses": losses}
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", required=True)
@@ -98,35 +140,10 @@ def main(argv=None):
     run = build_run(cfg, "cuda:0")
     batches = [run.device_batches() for _ in range(2)]
     run.close()  # the loaders' threads are not needed after the two batches
-    first, _ = _step(run, *batches[0])
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(STEPS):
-        secs, losses = _step(run, *batches[i % 2])
-        times.append(secs)
-    peak = torch.cuda.max_memory_allocated()
-    median = statistics.median(times)
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for i in range(PROFILED):
-            _step(run, *batches[i % 2])
-        torch.cuda.synchronize()
-        window = time.perf_counter() - t0
-    by_class = defaultdict(lambda: [0.0, 0])
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = e.device_time_total / 1e3 / PROFILED  # us -> ms per step
-        for table, key in ((by_class, classify(e.name)), (by_name, e.name)):
-            table[key][0] += ms
-            table[key][1] += 1
-    device_ms = sum(v[0] for v in by_class.values())
-    if device_ms <= 0:
-        raise SystemExit("profile_cli: the profiler recorded no device time")
+    m = measure(run, batches)
+    first, times, median, peak = m["first_s"], m["step_s"], m["median_s"], m["peak_bytes"]
+    device_ms, window, losses = m["device_ms"], m["window_s"], m["losses"]
+    by_class, by_name = m["by_class"], m["by_name"]
 
     print(f"config {args.config} {' '.join(args.set)}; batch {run.batch_size} at "
           f"{run.height}x{run.width}")

@@ -24,8 +24,13 @@ Port of the JAX package's `engine/checkpoints.py`:
   `os.replace`). One save writes several basenames (a validation's best and
   last) from one host snapshot. An asynchronous save copies the state to the
   host before it returns and writes the files on a thread; `wait_for_saves` joins it and
-  re-raises its error. A JAX full-state `.msgpack` (an optax `opt_state`
-  tree) is not read.
+  re-raises its error. `load_resume` also reads the JAX package's
+  full-state `.msgpack` (`save_resume`'s `{step, params, batch_stats,
+  opt_state, lr_scale[, ema_params]}` with its `{step, best_iou}` sidecar):
+  the model through `state_dict_from_jax`, the EMA teacher from
+  `ema_params`, and the optax `opt_state` tree mapped onto the port's
+  buffers by parameter name (`_opt_state_from_jax`). `load_model_only`
+  restores the model alone, from either format.
 
 There is no download: a missing `mono*` component raises FileNotFoundError,
 a missing ImageNet file prints the JAX package's warning and leaves the
@@ -44,7 +49,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import not_ported
+from . import optim
 from .interop import state_dict_from_jax
 
 MONODEPTH_COMPONENTS = ("depth", "pose_encoder", "pose")
@@ -232,8 +237,8 @@ def _to_host(tree):
 
 def _sidecar(ckpt_path: str) -> str:
     stem, ext = os.path.splitext(ckpt_path)
-    return stem + ".json" if ext == ".pth" else os.path.join(os.path.dirname(ckpt_path),
-                                                            "best_model.json")
+    return stem + ".json" if ext in (".pth", ".msgpack") else os.path.join(
+        os.path.dirname(ckpt_path), "best_model.json")
 
 
 class ResumeWriter:
@@ -309,19 +314,26 @@ class ResumeWriter:
 
 
 def load_resume(ckpt_path: str, model: torch.nn.Module, teacher: Optional[torch.nn.Module],
-                optimizer) -> Tuple[int, float]:
-    """Restore `ResumeWriter.save_resume`'s file into the model, the teacher
-    and the optimizer, in place (JAX `load_resume`). Returns (step,
-    best_iou), from the sidecar where there is one."""
+                optimizer, model_cfg: Optional[Dict[str, Any]] = None,
+                load_model_only: bool = False) -> Tuple[int, float]:
+    """Restore `ResumeWriter.save_resume`'s file, or the JAX package's
+    full-state `.msgpack`, into the model, the teacher and the optimizer, in
+    place (JAX `load_resume`); `model_cfg` (the run's `model` section) maps
+    a JAX tree. With `load_model_only` the model's parameters and
+    statistics alone, as JAX's. Returns (step, best_iou), from the sidecar
+    where there is one."""
     if ckpt_path.endswith(".msgpack"):
-        raise not_ported(f"{ckpt_path}: resuming from the JAX package's full-state "
-                         ".msgpack (an optax opt_state tree)", "trainer I/O")
-    raw = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-    model.load_state_dict(raw["model"])
-    optimizer.load_state_dict(raw["optimizer"])
-    if teacher is not None and "teacher" in raw:
-        teacher.load_state_dict(raw["teacher"])
-    best_iou, step = -100.0, int(raw["step"])
+        step = _load_jax_resume(ckpt_path, model, teacher, optimizer, model_cfg or {},
+                                load_model_only)
+    else:
+        raw = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        model.load_state_dict(raw["model"])
+        if not load_model_only:
+            optimizer.load_state_dict(raw["optimizer"])
+            if teacher is not None and "teacher" in raw:
+                teacher.load_state_dict(raw["teacher"])
+        step = int(raw["step"])
+    best_iou = -100.0
     meta_path = _sidecar(ckpt_path)
     if os.path.exists(meta_path):
         with open(meta_path) as f:
@@ -329,3 +341,155 @@ def load_resume(ckpt_path: str, model: torch.nn.Module, teacher: Optional[torch.
         best_iou = meta.get("best_iou", -100.0)
         step = meta.get("step", step)
     return step, best_iou
+
+
+def _load_jax_resume(path: str, model: torch.nn.Module, teacher: Optional[torch.nn.Module],
+                     optimizer, model_cfg: Dict[str, Any], load_model_only: bool) -> int:
+    """The JAX package's full-state `.msgpack` into the model, the EMA
+    teacher and the optimizer (see `load_resume`). Returns the file's step."""
+    raw = read_msgpack(path)
+    params, stats = raw["params"], raw.get("batch_stats", {})
+    model.load_state_dict(state_dict_from_jax(params, stats, model_cfg))
+    if load_model_only:
+        return int(raw["step"])
+    _opt_state_from_jax(raw["opt_state"], params, stats, optimizer, model_cfg)
+    optimizer.lr_scale = float(raw.get("lr_scale", 1.0))
+    if teacher is not None and "ema_params" in raw:
+        teacher.load_state_dict(state_dict_from_jax(raw["ema_params"], stats, model_cfg))
+    return int(raw["step"])
+
+
+# the optax state of each core, as `flax.serialization.to_state_dict` writes
+# it: buffer kinds over the whole parameter tree (other groups' leaves masked
+# to {}), and the port's name for each
+_JAX_CORE_KINDS = {optim.SGD: {"trace": "momentum"}, optim.Adam: {"mu": "mu", "nu": "nu"},
+                   optim.Adamax: {"mu": "mu", "nu": "nu"},
+                   optim.Adadelta: {"e_g": "e_g", "e_x": "e_x"},
+                   optim.Adagrad: {"sum_of_squares": "sum_of_squares"},
+                   optim.RMSprop: {"nu": "nu"}}
+_SCALAR = ()  # a leaf of shape () in a template
+
+
+def _core_kinds(optimizer) -> Dict[str, str]:
+    """The optax buffer kinds of `optimizer`'s core -> the port's names
+    (none for SGD without momentum, whose core is optax's identity)."""
+    if isinstance(optimizer, optim.SGD) and not optimizer.momentum:
+        return {}
+    return _JAX_CORE_KINDS[type(optimizer)]
+
+
+def _jax_labels(tree: Dict[str, Any], model_cfg: Dict[str, Any]) -> Dict[str, Any]:
+    """JAX `build_param_labels` on a parameter tree."""
+    def walk(t, top, second):
+        if isinstance(t, dict):
+            return {k: walk(v, top, k if top == "mtl_decoder" and second is None else second)
+                    for k, v in t.items()}
+        return optim.frozen_label(top, second, model_cfg)
+
+    return {k: walk(v, k, None) for k, v in tree.items()}
+
+
+def _masked(params: Dict[str, Any], labels: Dict[str, Any], group: str):
+    """`params`'s shapes where `labels` is `group`, {} (optax's MaskedNode)
+    elsewhere."""
+    if isinstance(params, dict):
+        return {k: _masked(v, labels[k], group) for k, v in params.items()}
+    return tuple(np.shape(params)) if labels == group else {}
+
+
+def _opt_template(optimizer, params: Dict[str, Any], labels: Dict[str, Any]):
+    """The optax state tree that JAX `build_optimizer` builds for the port's
+    optimizer: shapes at the leaves."""
+    wd = [{}] if optimizer.weight_decay else []
+    inner = {}
+    for group in sorted(set(_leaves(labels))):
+        if group == optim.FROZEN:
+            inner[group] = {"inner_state": {}}  # set_to_zero
+            continue
+        masked = _masked(params, labels, group)
+        if isinstance(optimizer, optim.ASGD):
+            state = {"count": _SCALAR, "eta": _SCALAR}
+            state = {"0": {}, "1": state} if wd else state
+        else:
+            kinds = _core_kinds(optimizer)
+            core = {k: masked for k in kinds}
+            if isinstance(optimizer, optim.Adam):  # and Adamax: ScaleByAdamState
+                core["count"] = _SCALAR
+            parts = wd + ([core] if kinds else [])
+            state = {"0": {str(i): part for i, part in enumerate(parts)},
+                     "1": {"count": _SCALAR}}  # scale_by_schedule
+        inner[group] = {"inner_state": state}
+    tree = {"inner_states": inner}
+    return {"0": {}, "1": tree} if optimizer.clip_grad_norm is not None else tree
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _match(template, tree, path: str = "opt_state") -> None:
+    """Raise, naming the first path where `tree` differs from `template`
+    (flax `from_state_dict`'s check)."""
+    if isinstance(template, dict):
+        if not isinstance(tree, dict) or set(tree) != set(template):
+            keys = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"{path}: the optimizer the config builds has keys "
+                             f"{sorted(template)}, the file {keys}")
+        for k in sorted(template):
+            _match(template[k], tree[k], f"{path}/{k}")
+    elif isinstance(tree, dict) or tuple(np.shape(tree)) != template:
+        got = "{}" if isinstance(tree, dict) else f"shape {tuple(np.shape(tree))}"
+        raise ValueError(f"{path}: the optimizer the config builds has shape {template}, "
+                         f"the file {got}")
+
+
+def _merge(trees: List[Any], params):
+    """One tree of `params`'s structure from group trees whose other
+    groups' leaves are {}; zeros where no group has the leaf (frozen)."""
+    if isinstance(params, dict):
+        return {k: _merge([t[k] for t in trees], v) for k, v in params.items()}
+    for t in trees:
+        if not isinstance(t, dict):
+            return t
+    return np.zeros(np.shape(params), np.float32)
+
+
+def _opt_state_from_jax(opt_state: Dict[str, Any], params: Dict[str, Any],
+                        stats: Dict[str, Any], optimizer, model_cfg: Dict[str, Any]) -> None:
+    """Map the optax `opt_state` of a JAX `save_resume` file onto the port's
+    optimizer by parameter name: `multi_transform` holds one inner state per
+    group label; SGD's `trace` is the momentum, `scale_by_adam` holds `mu`,
+    `nu` and `count`; the `scale_by_schedule` count is the step; the clip's
+    state is empty; asgd holds `count` and `eta` per group."""
+    labels = _jax_labels(params, model_cfg)
+    _match(_opt_template(optimizer, params, labels), opt_state)
+    inner = (opt_state["1"] if optimizer.clip_grad_norm is not None else opt_state)
+    states = {g: v["inner_state"] for g, v in inner["inner_states"].items()
+              if g != optim.FROZEN}
+    own = {g["label"] for g in optimizer.groups}
+    if set(states) != own:
+        raise ValueError(f"opt_state/inner_states: groups {sorted(states)}, the optimizer "
+                         f"trains {sorted(own)}")
+    sd: Dict[str, Any] = {"lr_scale": optimizer.lr_scale, "state": {}}
+    if isinstance(optimizer, optim.ASGD):
+        def unwrap(s):
+            return s["1"] if optimizer.weight_decay else s
+
+        sd["groups"] = {g: {"eta": float(unwrap(s)["eta"])} for g, s in states.items()}
+        sd["step_count"] = int(unwrap(next(iter(states.values())))["count"])
+    else:
+        sd["step_count"] = int(next(iter(states.values()))["1"]["count"])
+        # the core follows add_decayed_weights' empty state in the chain
+        cores = [s["0"][str(1 if optimizer.weight_decay else 0)] for s in states.values()
+                 ] if _core_kinds(optimizer) else []
+        names = {name for g in optimizer.groups for name in g["names"]}
+        for jax_kind, kind in _core_kinds(optimizer).items():
+            tree = _merge([c[jax_kind] for c in cores], params)
+            converted = state_dict_from_jax(tree, stats, model_cfg)
+            for name in names:
+                sd["state"].setdefault(name, {})[kind] = converted[name]
+    optimizer.load_state_dict(sd)

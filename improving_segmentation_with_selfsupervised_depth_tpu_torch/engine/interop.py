@@ -5,7 +5,8 @@ JAX package's `engine/full_model_interop.py::convert_full_model`: it takes the
 Flax `params`/`batch_stats` trees (as numpy arrays) and returns the state_dict
 that `models.joint.JointSegmentationDepth.load_state_dict` takes. Conv
 kernels go from (kH, kW, I, O) to (O, I, kH, kW); BatchNorm scale/bias/mean/
-var to weight/bias/running_mean/running_var.
+var to weight/bias/running_mean/running_var (a decoder ConvBlock's
+`BatchNorm_0`, dec9's `batch_norm`, to `block.1`).
 """
 
 from __future__ import annotations
@@ -86,9 +87,11 @@ def _depth_decoder(sd, prefix, p, s, depth_args):
                 ms[pooled]["BatchNorm_0"])
             _conv_bn_relu(sd, tpre + "project", mp[f"ConvBNReLU_{n_conv}"],
                           ms[f"ConvBNReLU_{n_conv}"])
-        else:  # ConvBlock
+        else:  # ConvBlock: Conv3x3, then BatchNorm (dec9's batch_norm) in slot 1
             _conv(sd, tpre + "block.0.conv.weight", mp["Conv3x3_0"]["Conv_0"]["kernel"])
             sd[tpre + "block.0.conv.bias"] = _t(mp["Conv3x3_0"]["Conv_0"]["bias"])
+            if "BatchNorm_0" in mp:
+                _bn(sd, tpre + "block.1", mp["BatchNorm_0"], s[name]["BatchNorm_0"])
 
 
 def _seg_decoder(sd, prefix, p, s, depth_args):

@@ -22,8 +22,12 @@ then takes the plateau step (`reduce_lr_on_plateau`'s `lr_scale`), then
 early stopping. The step's losses stay on the device until
 `print_interval`, where they are averaged, logged and written
 (`engine/writer.py`: `training/*`; after a validation `validation/*` and
-`val_metrics/*`). `resume` and `auto_resume` (`<log_path>/last_model.pth`)
-restore the state and the iteration (`engine/checkpoints.py`).
+`val_metrics/*`). `resume` (the port's `.pth` or the JAX package's full-state
+`.msgpack`) and `auto_resume` (`<log_path>/last_model.pth`) restore the
+state and the iteration (`engine/checkpoints.py`). With `data.depth_teacher`,
+or a depth mix mask from offline depth, on files (not `synthetic`),
+`build_run` first has the depth teacher write the pseudo-depth PNGs that
+the loaders read (`engine/depth_estimator.py`).
 `training.save_separate_monodepth_models` exports the SDE components after
 the last step (the EMA teacher's parameters with `save_monodepth_ema`).
 With `training.amp` the model computes in bf16 (`models/joint.py`).
@@ -45,7 +49,6 @@ import numpy as np
 import torch
 import yaml
 
-from .. import not_ported
 from ..config.machine import expand_cfg_vars, machine_paths
 from ..data.loader import DataLoader, infinite_iterator, to_device_batch
 from ..data.registry import build_loader
@@ -53,6 +56,7 @@ from ..models.joint import build_model
 from ..ops.metrics import AverageMeterDict, RunningScore
 from ..utils.misc import get_logger, set_seeds
 from .checkpoints import ResumeWriter, apply_pretraining, load_resume, save_monodepth_models
+from .depth_estimator import DepthEstimator
 from .early_stopping import EarlyStopping
 from .optim import build_optimizer
 from .state import make_teacher
@@ -249,18 +253,30 @@ class Run:
             if saved >= n:
                 return
 
+    def train_loader_sequential(self) -> DataLoader:
+        """An unshuffled loader over the train subset that keeps the last,
+        partial batch (JAX `Trainer.train_loader_sequential`; label
+        selection scores with it)."""
+        return DataLoader(self.train_loader.dataset, self.batch_size, shuffle=False,
+                          drop_last=False, num_workers=self.cfg["data"].get("n_workers", 2),
+                          pin_memory=self.train_loader.pin_memory)
+
     def save_resume(self, *basenames: str) -> List[str]:
         """Save the full state to `<log_path>/<basename>.pth` for each of
-        `basenames` from one host snapshot, asynchronously unless
-        `training.async_checkpoints` is false."""
+        `basenames` (default `best_model`, as JAX `Trainer.save_resume`) from
+        one host snapshot, asynchronously unless `training.async_checkpoints`
+        is false. Returns the paths."""
         return self.checkpoints.save_resume(
             self.log_path, self.model, self.teacher, self.optimizer, self.best_iou,
             async_write=self.cfg["training"].get("async_checkpoints", True),
-            basenames=basenames)
+            basenames=basenames or ("best_model",))
 
-    def load_resume(self, path: str) -> None:
-        self.start_iter, self.best_iou = load_resume(path, self.model, self.teacher,
-                                                     self.optimizer)
+    def load_resume(self, path: str, load_model_only: bool = False) -> None:
+        """Restore a full-state checkpoint (the port's `.pth` or the JAX
+        package's `.msgpack`); with `load_model_only` the model alone."""
+        self.checkpoints.wait_for_saves()
+        self.start_iter, self.best_iou = load_resume(
+            path, self.model, self.teacher, self.optimizer, self.cfg["model"], load_model_only)
 
     def plateau_step(self, metric: float) -> None:
         """`reduce_lr_on_plateau`: scale the update by `factor` after more
@@ -305,9 +321,10 @@ def _merge_shared_options(cfg: Dict[str, Any]) -> None:
         cfg["data"].setdefault("img_size", [mono["height"], mono["width"]])
 
 
-def _build_loaders(cfg: Dict[str, Any], seed: int, pin_memory: bool):
+def _build_loaders(cfg: Dict[str, Any], seed: int, device: str):
     """The train, validation and (semi-supervised) unlabeled loaders (JAX
-    `Trainer.__init__`, reference train.py:194-236)."""
+    `Trainer.__init__`, reference train.py:194-236), after the offline
+    pseudo-depth where the run reads it from files."""
     training = cfg["training"]
     u = training.get("unlabeled_segmentation") or {}
     only_unlabeled = u.get("only_unlabeled", True)
@@ -320,8 +337,8 @@ def _build_loaders(cfg: Dict[str, Any], seed: int, pin_memory: bool):
          and not u.get("depthmix_online_depth", False))
         or cfg["data"].get("depth_teacher") is not None)
     if need_offline_depth and cfg["data"].get("dataset") != "synthetic":
-        raise not_ported("offline pseudo-depth (engine/depth_estimator.py) for "
-                         f"data.dataset {cfg['data'].get('dataset')!r}", "offline pseudo-depth")
+        DepthEstimator(cfg, device).prepare_depth_estimates()
+    pin_memory = torch.device(device).type == "cuda"
 
     data_cfg = dict(cfg["data"])
     if data_cfg.get("dataset_seed") in (None, "same"):
@@ -381,8 +398,7 @@ def build_run(cfg: Dict[str, Any], device: str = "cuda:0", run_id: str = "run") 
     training["log_path"] = log_path
     os.makedirs(log_path, exist_ok=True)
 
-    train_loader, val_loader, unlabeled_loader = _build_loaders(
-        cfg, seed, pin_memory=torch.device(device).type == "cuda")
+    train_loader, val_loader, unlabeled_loader = _build_loaders(cfg, seed, device)
     n_classes = train_loader.dataset.n_classes
     cfg["data"]["n_classes"] = n_classes
     step_cfg = step_config_from_cfg(cfg)
@@ -426,8 +442,7 @@ def _resume(run: Run, training: Dict[str, Any]) -> None:
     `last_model.pth`, where there is one), as the JAX trainer resumes."""
     resume = training.get("resume")
     if resume:
-        # a JAX full-state .msgpack raises in load_resume, whether or not it exists
-        if resume.endswith(".msgpack") or os.path.isfile(resume):
+        if os.path.isfile(resume):
             run.load_resume(resume)
             logger.info("Loaded checkpoint %s (iter %d)", resume, run.start_iter)
         else:

@@ -2,7 +2,8 @@
 
 Port of the JAX package's `models/depth_decoder.py` for the configurations
 the repository's configs use: stages i = n_upconv..0, each upconv_i_0
-(ConvBlock, or ASPP at the bottleneck when `intermediate_aspp`), a nearest x2
+(ConvBlock, with BatchNorm under `batch_norm` as in dec9, or ASPP at the
+bottleneck when `intermediate_aspp`), a nearest x2
 upsample only when the skip is spatially larger (a dilated encoder gives
 stages 4 and 3 one stride), concat with the skip, upconv_i_1; sigmoid
 `dispconv` heads at `scales` unless `enable_disparity` is off. The ModuleList
@@ -33,7 +34,7 @@ class DepthDecoder(nn.Module):
     def __init__(self, num_ch_enc: Sequence[int], scales: Sequence[int] = (0, 1, 2, 3),
                  intermediate_aspp: bool = False, aspp_rates: Sequence[int] = (6, 12, 18),
                  num_ch_dec: Sequence[int] = (16, 32, 64, 128, 256), n_upconv: int = 4,
-                 enable_disparity: bool = True):
+                 enable_disparity: bool = True, batch_norm: bool = False):
         super().__init__()
         self.scales = tuple(scales)
         self.n_upconv = n_upconv
@@ -49,12 +50,12 @@ class DepthDecoder(nn.Module):
             if i == n_upconv and intermediate_aspp:
                 add(("upconv", i, 0), ASPP(in_ch, aspp_rates, num_ch_dec[i]))
             else:
-                add(("upconv", i, 0), ConvBlock(in_ch, num_ch_dec[i]))
+                add(("upconv", i, 0), ConvBlock(in_ch, num_ch_dec[i], batch_norm))
             in_ch = num_ch_dec[i]
             if i > 0:
                 mods.append(nn.Identity())  # the reference's skip-projection slot
                 in_ch += num_ch_enc[i - 1]
-            add(("upconv", i, 1), ConvBlock(in_ch, num_ch_dec[i]))
+            add(("upconv", i, 1), ConvBlock(in_ch, num_ch_dec[i], batch_norm))
         self.enable_disparity = enable_disparity
         for s in self.scales if enable_disparity else ():
             add(("dispconv", s), Conv3x3(num_ch_dec[s], 1))

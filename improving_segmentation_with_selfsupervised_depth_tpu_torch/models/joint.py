@@ -48,6 +48,11 @@ from .pose_decoder import PoseDecoder
 from .resnet import ResNetEncoder, num_ch_enc
 from .seg_decoder import PAD, JointSegDepthDecoder
 
+# `model.depth_args` keys the port's DepthDecoder takes; the JAX decoder's
+# others run only at their defaults
+_DEPTH_ARGS = {"intermediate_aspp", "aspp_rates", "num_ch_dec", "n_upconv", "batch_norm"}
+_DEPTH_ARG_DEFAULTS = {"use_skips": True, "aspp_pooling": True, "n_project_skip_ch": -1,
+                       "dropout": 0.0, "num_output_channels": 1}
 _BACKBONE_DEPTH = {"resnet18": 18, "resnet34": 34, "resnet50": 50, "resnet101": 101,
                    "resnet152": 152}
 
@@ -178,6 +183,10 @@ def build_model(model_cfg: Dict[str, Any], n_classes: int,
     rsd = m.get("replace_stride_with_dilation")
     depth_args = dict(m.get("depth_args") or {})
     depth_args.pop("max_scale_size", None)  # static shapes make it redundant
+    for key in set(depth_args) - _DEPTH_ARGS:
+        value = depth_args.pop(key)
+        if _DEPTH_ARG_DEFAULTS.get(key, object()) != value:
+            raise not_ported(f"model.depth_args.{key}: {value!r}", "exp-211 model options")
     seg_args = dict(m.get("segmentation_args") or {})
     seg_args.pop("weights", None)  # pretrained weights are a checkpoint concern
     return JointSegmentationDepth(

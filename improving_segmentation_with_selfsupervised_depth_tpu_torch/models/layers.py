@@ -62,13 +62,15 @@ class Conv3x3(nn.Module):
 
 
 class ConvBlock(nn.Module):
-    """Conv3x3 + ELU (reference monodepth_layers.py:108-124); keys
-    `block.0.conv.*`, and `block.1` is the reference's BatchNorm slot, an
-    Identity in every configuration the port runs."""
+    """Conv3x3 + optional BatchNorm + ELU (reference monodepth_layers.py:108-124);
+    keys `block.0.conv.*` and, with `bn`, `block.1.*` (the reference's
+    BatchNorm slot, an Identity without it)."""
 
-    def __init__(self, in_ch: int, out_ch: int):
+    def __init__(self, in_ch: int, out_ch: int, bn: bool = False):
         super().__init__()
-        self.block = nn.Sequential(Conv3x3(in_ch, out_ch), nn.Identity(), nn.ELU(inplace=True))
+        self.block = nn.Sequential(Conv3x3(in_ch, out_ch),
+                                   BatchNorm2d(out_ch) if bn else nn.Identity(),
+                                   nn.ELU(inplace=True))
 
     def forward(self, x):
         return self.block(x)

@@ -1,12 +1,14 @@
-"""Cross-entropy with ignore index (NCHW logits) and the reverse-Huber
-depth loss.
+"""Cross-entropy with ignore index (NCHW logits), the reverse-Huber depth
+loss and the per-pixel entropy of the segmentation.
 
 Port of the JAX package's `ops/losses.py`: `cross_entropy2d` (reference
-loss/loss.py:18-37) without class weights, and `berhu` (loss/loss.py:5-15).
+loss/loss.py:18-37) without class weights, `berhu` (loss/loss.py:5-15) and
+`pixel_wise_entropy` (loss/loss.py:40-47).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -51,3 +53,16 @@ def berhu(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
     absdiff = abs_jax(target - pred) * mask
     c = torch.clamp_min(0.2 * absdiff.detach().amax(), 1e-12)
     return torch.where(absdiff <= c, absdiff, (absdiff * absdiff + c * c) / (2.0 * c)).mean()
+
+
+def pixel_wise_entropy(logits: torch.Tensor, normalize: bool = False) -> torch.Tensor:
+    """The softmax entropy per pixel in bits, over log2 of the class count:
+    (N, C, H, W) -> (N, H, W); with `normalize`, min-max normalized over the
+    whole tensor."""
+    if logits.dim() != 4:
+        raise ValueError(f"pixel_wise_entropy takes (N, C, H, W) logits, not {tuple(logits.shape)}")
+    p = torch.softmax(logits, dim=1)
+    ent = -torch.sum(p * torch.log2(p + 1e-30), dim=1) / math.log2(logits.shape[1])
+    if normalize:
+        ent = (ent - ent.min()) / (ent.max() - ent.min())
+    return ent

@@ -149,6 +149,9 @@ def test_new_modules_import_no_jax():
         f"import {PKG}.cli.train_cli, {PKG}.cli.profile_cli, {PKG}.utils.misc\n"
         f"import {PKG}.engine.writer, {PKG}.engine.early_stopping\n"
         f"import {PKG}.data.prepare_cityscapes, {PKG}.data.synthetic_dataset\n"
+        f"import {PKG}.label_selection, {PKG}.label_selection.driver\n"
+        f"import {PKG}.label_selection.scoring, {PKG}.engine.depth_estimator\n"
+        f"import {PKG}.data.preselected, {PKG}.ops.losses, {PKG}.engine.optim\n"
         f"from {PKG}.data import registry, loader, base, utils, cityscapes, camvid, mapillary\n"
         "registry.get_loader('cityscapes')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -184,12 +184,13 @@ def test_train_main_runs_the_exp212_config_shrunk(tmp_path):
 
 @pytest.mark.parametrize("section,key,value", [
     ("model", "remat", True),
-    ("training", "optimizer", {"name": "adamax", "lr": 1e-3}),
+    ("model", "depth_args", {"intermediate_aspp": True, "aspp_rates": [1, 2], "dropout": 0.1}),
     ("model", "pose_model_input", "all"),
     ("training", "fuse_unlabeled_forward", True),
     ("training", "unlabeled_segmentation", {"mix_mask": "depthcomp", "debug_images": True}),
-    ("model", "freeze_pose", True),  # with the config's clip_grad_norm
-    ("training", "resume", "best_model.msgpack"),
+    ("model", "depth_args", {"intermediate_aspp": True, "aspp_rates": [1, 2],
+                             "use_skips": False}),
+    ("data", "dataset", "inference"),
 ])
 def test_what_the_slice_does_not_run_raises(section, key, value, tmp_path):
     from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine.trainer import (
@@ -200,3 +201,4 @@ def test_what_the_slice_does_not_run_raises(section, key, value, tmp_path):
     cfg[section][key] = value
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_main(cfg, device="cpu")
+

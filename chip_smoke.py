@@ -79,7 +79,28 @@ Phases, each reported on its own lines:
      sample, distances, IFP, each round), with its subsets checked (sizes,
      distinct, nested, the subset files, the models removed), then
      `acquire_scores` on 4 samples card against CPU (cuDNN TF32 off):
-     label criteria and distances within 1e-3.
+     label criteria and distances within 1e-3;
+  9. experiments (the experiment CLIs): seeded stand-ins of the published
+     SDE components (`mono_cityscapes_1024x512_r101dil_aspp_dec6_lr5_fd2_
+     crop512x512bs4/{encoder,depth,pose_encoder,pose}.pth`) in a temporary
+     SDT_MODEL_DIR; (a) `run_experiments(configs/cityscapes_joint.yml, 212,
+     runs=[0], strict=True)`, the generated `pad_transfer_dcompgt0030` trial
+     at full width (ResNet-101 dilated, dec6 + ASPP, PAD, pose ResNet-18,
+     batch 2 + 2 at 512x512 crops of a generated 16 + 8 frame Cityscapes
+     tree, `debug_image` on) on the JAX smoke budgets with its own overrides
+     (3 steps validated after steps 1 and 3, 8 labeled frames, best
+     checkpoint, print_interval 1): the trial YAML, launches per step and
+     per validation batch, peak memory, the mix debug tensors of every step
+     (shapes, mask in {0, 1}, pseudo-labels, depths in [0, 1]) and their
+     `class_mix_debug` images where matplotlib is installed, then the
+     step's profile; (b) `test_experiments_cli.main(["--synthetic",
+     "--strict"])`: all 10 generated trials of 210, 211 and 212 at resnet18
+     and 64x96, each timed; (c) `export_cli` on (a)'s run dir at 512x1024,
+     at batch 1 and with a symbolic batch: sizes, export times, the
+     artifacts against the eager model (cuDNN TF32 off) and times per
+     image; (d) `inference_cli` over the tree's 8 validation images from
+     (a)'s run dir: every input's PNGs, the labels against the artifact's
+     argmax and the depths within 1 grey level, time per image by part.
 The last three lines are the card's name and power limit (as at the
 start), the kernels' JSON record and `{"ok": true, "device": {...}}`. Any failure raises, so the exit code is
 nonzero and no `ok` line is printed. There is no CPU fallback.
@@ -1733,6 +1754,363 @@ def phase_exp211():
     return launches
 
 
+EXPERIMENTS_BASE = "configs/cityscapes_joint.yml"
+SDE_STANDIN = "mono_cityscapes_1024x512_r101dil_aspp_dec6_lr5_fd2_crop512x512bs4"
+EXP212_UNFUSED_PER_STEP = {"warp": 4, "reprojection": 4, "reprojection_grad": 0}
+
+
+def _sde_standins(model_dir, name):
+    """Seeded stand-ins of the published SDE components (`encoder`, `depth`,
+    `pose_encoder`, `pose` of the ResNet-101 dilated dec6 ASPP model) under
+    `<model_dir>/<name>/`, as `_exp211_weights` writes its teacher."""
+    torch.manual_seed(11)
+    model = joint.build_model({
+        "backbone_name": "resnet101", "replace_stride_with_dilation": [False, False, True],
+        "segmentation_name": None, "frame_ids": [0, -1, 1],
+        "depth_args": {"intermediate_aspp": True, "aspp_rates": [6, 12, 18],
+                       "num_ch_dec": [64, 128, 128, 256, 256]}}, 19)
+    for component in ("encoder", "depth", "pose_encoder", "pose"):
+        checkpoints.save_component(str(Path(model_dir) / name), model, component)
+
+
+def _experiments_trial(tmp, label, base_cfg):
+    """(a): the generated exp-212 trial 0 through `run_experiments` on a
+    generated Cityscapes tree, with the phase's overrides on the JAX smoke
+    budgets; its launches per step and per validation batch, the mix debug
+    tensors and images, then its step's profile. Returns (launches, run dir)."""
+    from improving_segmentation_with_selfsupervised_depth_tpu_torch.cli import (
+        run_experiments_cli,
+        test_experiments_cli,
+    )
+
+    write_cityscapes_tree(tmp / "cityscapes")
+
+    def overrides(cfg):
+        test_experiments_cli.smoke_overrides(cfg)
+        for path, value in (("training.train_iters", 4), ("training.val_interval", {"0": 2}),
+                            ("data.restrict_to_subset.n_subset", 8),
+                            ("training.save_model", True), ("training.print_interval", 1)):
+            *keys, last = path.split(".")
+            node = cfg
+            for k in keys:
+                node = node[k]
+            node[last] = value
+            print(f"[{label}] override {path}: {value} (3 steps, validated after steps 1 and "
+                  f"3, 8 of the tree's 16 train frames labeled)" if path == "training.train_iters"
+                  else f"[{label}] override {path}: {value}")
+
+    debug, val_launches, validations = [], [], []
+    saved_dump, saved_validate = trainer.Run.dump_mix_debug, trainer.Run.validate
+
+    def dump_mix_debug(run, tensors, step):
+        t0 = time.perf_counter()
+        saved_dump(run, tensors, step)
+        seconds = time.perf_counter() - t0
+        host = {k: v.float().cpu().numpy() for k, v in tensors.items()}
+        debug.append((step, seconds, host))
+
+    def validate(run, step):
+        before = _read_launches()
+        out = saved_validate(run, step)
+        after = _read_launches()
+        val_launches.append({k: after[k] - before[k] for k in after})
+        validations.append(len(run.val_loader))
+        return out
+
+    trainer.Run.dump_mix_debug, trainer.Run.validate = dump_mix_debug, validate
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    try:
+        t0 = time.perf_counter()
+        out_dir = run_experiments_cli.run_experiments(
+            copy.deepcopy(base_cfg), 212, runs=[0], strict=True, device="cuda:0",
+            config_name="cityscapes_joint", overrides=overrides)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        trainer.Run.dump_mix_debug, trainer.Run.validate = saved_dump, saved_validate
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    trial_yaml = Path(out_dir) / "trial_0.yaml"
+    with open(trial_yaml) as f:
+        trial = yaml.safe_load(f)
+    m, t = trial["model"], trial["training"]
+    print(f"[{label}] wrote {trial_yaml.relative_to(tmp)}: variant {m['variant']}, "
+          f"{m['backbone_name']} dilated {m['replace_stride_with_dilation']}, "
+          f"{m['segmentation_name']} {m['segmentation_args']}, dec6 {m['depth_args']}, "
+          f"pose {not m['disable_pose']}, batch {t['batch_size']} + {t['batch_size']}, "
+          f"{t['optimizer']}, clip {t['clip_grad_norm']}, debug_image "
+          f"{t['unlabeled_segmentation']['debug_image']}, fused_reprojection "
+          f"{t.get('fused_reprojection', False)}")
+    if m["variant"] != "pad_transfer_dcompgt0030" or not \
+            t["unlabeled_segmentation"]["debug_image"]:
+        raise AssertionError(f"{label}: trial 0 is {m['variant']}")
+    run_dir = tmp / "logs" / "cityscapes_joint_212"
+    n_val = len(val_launches)
+    per_val = val_launches[0] if val_launches else {}
+    step_launches = {k: v - sum(vl[k] for vl in val_launches) for k, v in launches.items()}
+    per_step = {k: v / 3 for k, v in step_launches.items()}
+    print(f"[{label}] run_experiments {wall:.3f} s (the run's build, 3 steps, {n_val} "
+          f"validations of {validations} batches of 2 at 512x1024, checkpoints, debug images); "
+          f"peak memory allocated {peak / 2**30:.3f} GiB; launches {launches}: per step "
+          f"{per_step}, per validation batch {[{k: v / b for k, v in vl.items()} for vl, b in zip(val_launches, validations)]}")
+    if n_val != 2 or per_step != EXP212_UNFUSED_PER_STEP or any(
+            vl != {k: v * b for k, v in EXP212_PER_VAL_BATCH.items()}
+            for vl, b in zip(val_launches, validations)):
+        raise AssertionError(f"{label}: launches {launches}, validations {val_launches}")
+
+    # the debug tensors of every step (print_interval 1), whether or not
+    # matplotlib drew them
+    if len(debug) != 3:
+        raise AssertionError(f"{label}: {len(debug)} debug dumps for 3 steps")
+    for step, seconds, host in debug:
+        imgs, mask = host["debug/mixed_imgs"], host["debug/mix_mask"]
+        pseudo, depths = host["debug/pseudo_label"], host["debug/depths"]
+        labels = np.unique(pseudo)
+        print(f"[{label}] step {step} debug tensors: mixed_imgs {imgs.shape} in "
+              f"[{imgs.min():.3f}, {imgs.max():.3f}], mix_mask {mask.shape} mean "
+              f"{mask.mean():.4f}, pseudo_label {pseudo.shape} values {labels.astype(int).tolist()}, "
+              f"depths {depths.shape} in [{depths.min():.4f}, {depths.max():.4f}]; the loop's "
+              f"dump took {seconds:.4f} s")
+        # 250 (ignore) where mix_use_gt's one-hot labels are all zero
+        if imgs.shape != (2, 3, 512, 512) or mask.shape != pseudo.shape != depths.shape \
+                or mask.shape != (2, 512, 512) or not set(np.unique(mask)) <= {0.0, 1.0} \
+                or not all(0 <= v < 19 or v == 250 for v in labels) \
+                or not (0 <= depths.min() and depths.max() <= 1):
+            raise AssertionError(f"{label}: debug tensors at step {step}")
+    jpgs = sorted(os.listdir(run_dir / "class_mix_debug")) if (
+        run_dir / "class_mix_debug").is_dir() else []
+    if importlib.util.find_spec("matplotlib") is None:
+        print(f"[{label}] matplotlib is not installed: the loop wrote no class_mix_debug "
+              f"images ({jpgs})")
+        if jpgs:
+            raise AssertionError(f"{label}: debug images without matplotlib")
+    else:
+        print(f"[{label}] class_mix_debug: {jpgs}")
+        if jpgs != [f"{s}_{j}_img.jpg" for s in (1, 2, 3) for j in (0, 1)]:
+            raise AssertionError(f"{label}: debug images {jpgs}")
+    files = sorted(os.listdir(run_dir))
+    if "best_model.pth" not in files or "cfg.yml" not in files:
+        raise AssertionError(f"{label}: run dir {files}")
+
+    # the trial's step alone: profile_cli's method on a run of the trial's config
+    trial["training"]["log_path"] = str(tmp / "profile")
+    run = trainer.build_run(trial, "cuda:0")
+    try:
+        batches = [run.device_batches() for _ in range(2)]
+    finally:
+        run.close()
+    prof = profile_cli.measure(run, batches)
+    n_kernels = sum(n for _, n in prof["by_class"].values()) / profile_cli.PROFILED
+    print(f"[{label}] step (batch 2 + 2 at 512x512, debug images on): median "
+          f"{prof['median_s']:.4f} s of {len(prof['step_s'])} (min {min(prof['step_s']):.4f}, "
+          f"max {max(prof['step_s']):.4f}); device {prof['device_ms']:.2f} ms per step, "
+          f"{n_kernels:,.0f} kernels; idle share {prof['idle']:.4f}; peak memory allocated "
+          f"{prof['peak_bytes'] / 2**30:.3f} GiB")
+    del run, batches
+    torch.cuda.empty_cache()
+    return launches, run_dir
+
+
+def _experiments_synthetic(label, base_cfg_path):
+    """(b): every generated trial of 210, 211 and 212 through the smoke
+    runner on synthetic data at resnet18 and 64x96, each timed. Returns the
+    launches."""
+    from improving_segmentation_with_selfsupervised_depth_tpu_torch.cli import (
+        run_experiments_cli,
+        test_experiments_cli,
+    )
+
+    trials = []
+    saved = {k: getattr(run_experiments_cli, k) for k in ("train_main", "label_selection_main")}
+
+    def timed(name):
+        def call(cfg, **kwargs):
+            t0 = time.perf_counter()
+            trials.append([cfg["model"]["variant"], None])
+            out = saved[name](cfg, **kwargs)
+            torch.cuda.synchronize()
+            trials[-1][1] = time.perf_counter() - t0
+            return out
+        return call
+
+    for k in saved:
+        setattr(run_experiments_cli, k, timed(k))
+    _reset_launches()
+    try:
+        t0 = time.perf_counter()
+        test_experiments_cli.main(["--config", base_cfg_path, "--synthetic", "--strict",
+                                   "--exps", "210,211,212", "--device", "cuda:0"])
+        wall = time.perf_counter() - t0
+    finally:
+        for k, fn in saved.items():
+            setattr(run_experiments_cli, k, fn)
+    launches = _read_launches()
+    finished = [t for t in trials if t[1] is not None]
+    print(f"[{label}] test_experiments_cli --synthetic --strict: dispatched {len(trials)} "
+          f"trials, finished {len(finished)}, in {wall:.1f} s; launches {launches}")
+    for variant, secs in trials:
+        print(f"[{label}] trial {variant}: {secs:.2f} s")
+    if len(trials) != 10 or len(finished) != 10:
+        raise AssertionError(f"{label}: {len(trials)} dispatched, {len(finished)} finished")
+    return launches
+
+
+def _experiments_export(tmp, label, run_dir):
+    """(c): export_cli on the trial's run dir at 512x1024, at batch 1 and
+    with a symbolic batch; the artifacts against the eager model at batch 1
+    and 2 (cuDNN TF32 off), their sizes, export times and times per image.
+    Returns the symbolic artifact's path."""
+    from improving_segmentation_with_selfsupervised_depth_tpu_torch.cli import export_cli
+    from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine.export import (
+        load_exported,
+    )
+
+    h, w = 512, 1024
+    paths = {}
+    for batch in (1, 0):
+        path = tmp / f"model_b{batch or 'sym'}.pt2"
+        t0 = time.perf_counter()
+        export_cli.main(["--model", str(run_dir), "--out", str(path), "--height", str(h),
+                         "--width", str(w), "--batch", str(batch), "--device", "cuda:0"])
+        secs = time.perf_counter() - t0
+        print(f"[{label}] export_cli --batch {batch} ({'symbolic' if not batch else 'fixed'}): "
+              f"{path.stat().st_size / 2**20:.1f} MiB in {secs:.2f} s (the run dir's load "
+              f"included)")
+        paths[batch] = path
+    model, _ = export_cli.load_run_model(str(run_dir), "cuda:0")
+    x = torch.rand((2, 3, h, w), generator=torch.Generator().manual_seed(3)).to("cuda:0")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for batch, path in paths.items():
+            serve = load_exported(str(path))
+            for n in ((1,) if batch else (1, 2)):
+                out = serve(x[:n])
+                with torch.no_grad():
+                    eager = model({"color_aug_0_0": x[:n]}, use_pose=False)
+                for k in ("semantics", "disp_0"):
+                    err = float((out[k] - eager[k]).abs().max())
+                    scale = float(eager[k].abs().max())
+                    print(f"[{label}] artifact ({'symbolic' if not batch else 'batch 1'}) at n "
+                          f"{n}, {k} {tuple(out[k].shape)}: max |artifact - eager| {err:.3e}, "
+                          f"max |eager| {scale:.3e} (tolerance 1e-4 of it, TF32 off)")
+                    if not (math.isfinite(err) and err <= 1e-4 * max(scale, 1.0)):
+                        raise AssertionError(f"{label}: artifact {k} off by {err}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    serve = load_exported(str(paths[0]))
+    with torch.no_grad():
+        art_ms = _time_ms(lambda: serve(x), reps=5)
+        eager_ms = _time_ms(lambda: model({"color_aug_0_0": x}, use_pose=False), reps=5)
+    print(f"[{label}] time per image at batch 2, 512x1024 (CUDA events, median of 5, cuDNN "
+          f"TF32 {tf32}): artifact {art_ms / 2:.3f} ms, eager forward {eager_ms / 2:.3f} ms")
+    del model, x
+    torch.cuda.empty_cache()
+    return paths[0]
+
+
+def _experiments_inference(tmp, label, run_dir, artifact):
+    """(d): inference_cli over the tree's 8 validation images from the
+    trial's run dir (cuDNN TF32 off): every input's PNGs, the labels against
+    the argmax of the artifact (differences only at near ties) and the
+    depths within 1 grey level; time per image by part."""
+    from PIL import Image
+
+    from improving_segmentation_with_selfsupervised_depth_tpu_torch.cli import inference_cli
+    from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine.export import (
+        load_exported,
+    )
+
+    data = tmp / "cityscapes" / "leftImg8bit_small" / "val"
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t0 = time.perf_counter()
+        inf = inference_cli.main(["--model", str(run_dir), "--data", str(data),
+                                  "--device", "cuda:0"])
+        wall = time.perf_counter() - t0
+        serve = load_exported(str(artifact))
+        stems = sorted(str(p)[:-4] for p in Path(inf.logdir).rglob("*.jpg"))
+        worst_depth, flips, near = 0, 0, 0
+        for stem in stems:
+            for suffix in ("_depth.png", "_label.png"):
+                if not os.path.isfile(stem + suffix):
+                    raise AssertionError(f"{label}: no {stem + suffix}")
+            # the input as the dataset read it (the written copy is a new JPEG)
+            source = data.parent / Path(stem).relative_to(inf.logdir)
+            img = np.asarray(Image.open(str(source) + ".jpg"), np.float32) / 255.0
+            with torch.no_grad():
+                out = serve(torch.from_numpy(img.transpose(2, 0, 1)[None].copy()).to("cuda:0"))
+            logits = out["semantics"][0].float()
+            top2 = logits.topk(2, dim=0).values
+            gap = (top2[0] - top2[1]).cpu().numpy()
+            pred = logits.argmax(0).cpu().numpy()
+            want = (inf.val_dataset.decode_segmap_tocolor(pred) * 255).astype(np.uint8)
+            got = np.asarray(Image.open(stem + "_label.png"))
+            differ = np.any(got != want, axis=-1)
+            flips += int(differ.sum())
+            near += int((differ & (gap > 1e-3)).sum())
+            disp = (np.clip(out["disp_0"][0, 0].float().cpu().numpy(), 0, 1) * 255).astype(
+                np.int16)
+            depth = np.asarray(Image.open(stem + "_depth.png"), np.int16)
+            worst_depth = max(worst_depth, int(np.abs(depth - disp).max()))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    sec = {k: np.asarray(v) / 2 for k, v in inf.seconds.items()}  # batches of 2
+    print(f"[{label}] inference_cli over {len(stems)} images at 512x1024 in {wall:.2f} s (the "
+          f"run dir's load included); per image, median over the batches (first batch): "
+          + ", ".join(f"{k} {np.median(v) * 1e3:.2f} ms ({v[0] * 1e3:.2f})"
+                      for k, v in sec.items()))
+    print(f"[{label}] against the artifact: {flips} label pixels differ ({near} of them with "
+          f"top-two logits more than 1e-3 apart), depth PNGs within {worst_depth} grey levels")
+    if len(stems) != 8 or near or worst_depth > 1:
+        raise AssertionError(f"{label}: {len(stems)} images, {near} label flips off a near "
+                             f"tie, depth {worst_depth}")
+
+
+def phase_experiments():
+    """The experiment CLIs (see the module docstring): (a) a generated
+    exp-212 trial at full width, (b) every generated trial on synthetic
+    data, (c) export and (d) inference from (a)'s run dir. Returns the
+    launches of (a) and (b)."""
+    label = "experiments"
+    env = ("SDT_MODEL_DIR", "CITYSCAPES_DIR", "SDT_LOG_DIR", "SDT_DISPATCH_DIR")
+    saved_env = {k: os.environ.get(k) for k in env}
+    tmp = Path(tempfile.mkdtemp(prefix="experiments_"))
+    for k, sub in zip(env, ("models", "cityscapes", "logs", "dispatch")):
+        os.environ[k] = str(tmp / sub)
+    base_path = str(Path(__file__).resolve().parent / EXPERIMENTS_BASE)
+    with open(base_path) as f:
+        base_cfg = yaml.safe_load(f)
+    launches = {}
+    try:
+        _sde_standins(tmp / "models", SDE_STANDIN)
+        print(f"[{label}] stand-in SDE components (seeded, random) in models/{SDE_STANDIN}: "
+              f"{sorted(p.name for p in (tmp / 'models' / SDE_STANDIN).iterdir())}")
+        times = [time.perf_counter()]
+        launches["experiments_exp212_trial"], run_dir = _experiments_trial(
+            tmp, label + " a", base_cfg)
+        times.append(time.perf_counter())
+        launches["experiments_synthetic"] = _experiments_synthetic(label + " b", base_path)
+        times.append(time.perf_counter())
+        artifact = _experiments_export(tmp, label + " c", run_dir)
+        times.append(time.perf_counter())
+        _experiments_inference(tmp, label + " d", run_dir, artifact)
+        times.append(time.perf_counter())
+        print(f"[{label}] part times: " + ", ".join(
+            f"{p} {b - a:.1f} s" for p, a, b in zip("abcd", times, times[1:])))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
     card = phase_device()
@@ -1747,6 +2125,7 @@ def main():
         launches.update(phase_sde_pretrain())
         launches.update(phase_cityscapes_exp212(records))
         launches.update(phase_exp211())
+        launches.update(phase_experiments())
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     main_path = launches["exp212_pad_online_cityscapes"]

@@ -1,7 +1,7 @@
 """Train CLI of the port (the JAX package's cli/train_cli.py):
 
     python -m improving_segmentation_with_selfsupervised_depth_tpu_torch.cli.train_cli \
-        --config <yaml> [--device cuda:0]
+        --config <yaml> [--machine ws] [--device cuda:0]
 
 The run writes into `training.log_path`, or `<LOG_DIR>/<name>_<date>_<time>`
 where the config sets none (`config/machine.py`: `SDT_OUT_DIR`,
@@ -17,18 +17,22 @@ from datetime import datetime
 
 import yaml
 
+from ..config.machine import machine_paths
 from ..engine.trainer import train_main
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Train the joint model (PyTorch port)")
     parser.add_argument("--config", required=True, help="YAML experiment config")
+    parser.add_argument("--machine", type=str, default="ws")
     parser.add_argument("--device", default="cuda:0",
                         help="torch device; the kernels run on CUDA devices only")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     with open(args.config) as fp:
         cfg = yaml.safe_load(fp)
+    cfg["machine"] = args.machine
+    machine_paths(args.machine)  # an unknown machine raises, as in the JAX CLI
     # the run's default log path is <LOG_DIR>/<run_id> (JAX cli/train_cli.py)
     run_id = cfg.get("name", "run") + "_" + datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     train_main(cfg, device=args.device, run_id=run_id)

@@ -13,8 +13,11 @@ import os
 from typing import Any, Dict, Optional
 
 
-def machine_paths() -> Dict[str, str]:
-    """The `MachineConfig` attributes of the "ws" machine."""
+def machine_paths(machine: str = "ws") -> Dict[str, str]:
+    """The `MachineConfig` attributes of `machine` (only "ws" is known, as
+    in the JAX package)."""
+    if machine != "ws":
+        raise NotImplementedError(f"Unknown machine {machine}")
     data = os.environ.get("SDT_DATA_DIR", "datasets")
     out = os.environ.get("SDT_OUT_DIR", "results")
     env = os.environ.get

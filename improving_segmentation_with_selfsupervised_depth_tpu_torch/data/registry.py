@@ -7,15 +7,11 @@ from __future__ import annotations
 
 from typing import Any, Dict
 
-from .. import not_ported
-
 
 def get_loader(name: str):
-    if name == "inference":
-        raise not_ported("data.dataset 'inference' (data/inference_data.py)",
-                         "CLIs and experiments")
     from .camvid import CamvidDataset
     from .cityscapes import CityscapesDataset
+    from .inference_data import InferenceDataset
     from .mapillary import MapillaryVistasDataset
     from .synthetic_dataset import SyntheticDataset
 
@@ -24,6 +20,7 @@ def get_loader(name: str):
         "camvid": CamvidDataset,
         "mapillary": MapillaryVistasDataset,
         "synthetic": SyntheticDataset,
+        "inference": InferenceDataset,
     }[name]
 
 

@@ -313,6 +313,18 @@ class ResumeWriter:
         return paths
 
 
+def _load_model(model: torch.nn.Module, sd: Dict[str, torch.Tensor],
+                load_model_only: bool) -> None:
+    """`sd` into `model`, every tensor of the model from the file; with
+    `load_model_only` the file's other tensors are not read (a pose-free
+    model for inference from a run with a pose network, as flax's
+    `from_state_dict` reads only the template's keys)."""
+    if load_model_only:
+        own = model.state_dict()
+        sd = {k: v for k, v in sd.items() if k in own}
+    model.load_state_dict(sd)
+
+
 def load_resume(ckpt_path: str, model: torch.nn.Module, teacher: Optional[torch.nn.Module],
                 optimizer, model_cfg: Optional[Dict[str, Any]] = None,
                 load_model_only: bool = False) -> Tuple[int, float]:
@@ -320,14 +332,15 @@ def load_resume(ckpt_path: str, model: torch.nn.Module, teacher: Optional[torch.
     full-state `.msgpack`, into the model, the teacher and the optimizer, in
     place (JAX `load_resume`); `model_cfg` (the run's `model` section) maps
     a JAX tree. With `load_model_only` the model's parameters and
-    statistics alone, as JAX's. Returns (step, best_iou), from the sidecar
+    statistics alone, as JAX's, where the file may hold more (a pose
+    network the model was built without). Returns (step, best_iou), from the sidecar
     where there is one."""
     if ckpt_path.endswith(".msgpack"):
         step = _load_jax_resume(ckpt_path, model, teacher, optimizer, model_cfg or {},
                                 load_model_only)
     else:
         raw = torch.load(ckpt_path, map_location="cpu", weights_only=True)
-        model.load_state_dict(raw["model"])
+        _load_model(model, raw["model"], load_model_only)
         if not load_model_only:
             optimizer.load_state_dict(raw["optimizer"])
             if teacher is not None and "teacher" in raw:
@@ -349,7 +362,7 @@ def _load_jax_resume(path: str, model: torch.nn.Module, teacher: Optional[torch.
     teacher and the optimizer (see `load_resume`). Returns the file's step."""
     raw = read_msgpack(path)
     params, stats = raw["params"], raw.get("batch_stats", {})
-    model.load_state_dict(state_dict_from_jax(params, stats, model_cfg))
+    _load_model(model, state_dict_from_jax(params, stats, model_cfg), load_model_only)
     if load_model_only:
         return int(raw["step"])
     _opt_state_from_jax(raw["opt_state"], params, stats, optimizer, model_cfg)

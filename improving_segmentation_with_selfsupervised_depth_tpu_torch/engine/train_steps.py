@@ -35,8 +35,11 @@ network, the pose-free depth forward, the pseudo-depth loss with a depth
 teacher, and the depth metrics.
 
 Losses come back as 0-dim tensors, so the step itself never waits for the
-device. JAX's random keys become injectable draws (`StepDraws`): what is not
-injected is drawn from the step's `torch.Generator`.
+device; with `debug_images` the semi-supervised step also returns its mixed
+images (N, 3, H, W), mix mask and pseudo-label (N, H, W) and the mask's
+depths (N, H, W, where it has them) under `debug/*`, detached, on the
+device. JAX's random keys become injectable draws (`StepDraws`): what is
+not injected is drawn from the step's `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -111,6 +114,10 @@ class StepConfig:
     backward_first_pseudo_label: bool = False
     use_ema: bool = False
     ema_names: Optional[Tuple[str, ...]] = None
+    # the semi-supervised step also returns its mixed images, mix mask,
+    # pseudo-label and mixing depths under `debug/*` (the loop's
+    # class_mix_debug panels; reference train.py:726-744)
+    debug_images: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -318,11 +325,17 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
         mixed_batch = dict(unlabeled_batch)
         mixed_batch[key_of("color_aug", 0, 0)] = mixed_imgs
         out_s = model(mixed_batch, use_pose=False)
-        l_2, _ = pseudo_label_loss(cfg, mixed_softmax, out_s["semantics"])
+        l_2, pseudo_label = pseudo_label_loss(cfg, mixed_softmax, out_s["semantics"])
 
         seg_total = seg_total + l_2 + l_1
         mono_total = mono_total + mono_loss_u
         metrics["unlabeled_loss"] = (l_2 + l_1).detach()
+        if cfg.debug_images:
+            metrics["debug/mixed_imgs"] = mixed_imgs.detach()
+            metrics["debug/mix_mask"] = mix_mask
+            metrics["debug/pseudo_label"] = pseudo_label
+            if depths is not None:
+                metrics["debug/depths"] = depths.detach()
     total = seg_total + mono_total + pseudo_depth_loss
 
     optimizer.zero_grad()
@@ -409,8 +422,6 @@ def step_config_from_cfg(cfg: Dict[str, Any]) -> StepConfig:
     u = t.get("unlabeled_segmentation") or {}
     if t.get("fuse_unlabeled_forward", False):
         raise not_ported("training.fuse_unlabeled_forward", "exp-212 options")
-    if u.get("debug_images", u.get("debug_image", False)):
-        raise not_ported("unlabeled_segmentation.debug_images", "exp-212 options")
     if t.get("pred_layout", "pack") != "pack" or t.get("remat_photometric", False):
         raise not_ported("training.pred_layout other than 'pack' / remat_photometric",
                          "amp/bf16 model")
@@ -454,4 +465,7 @@ def step_config_from_cfg(cfg: Dict[str, Any]) -> StepConfig:
         backward_first_pseudo_label=u.get("backward_first_pseudo_label", False),
         use_ema=bool(u),
         ema_names=ema_model_names(t, m),
+        # the reference's experiments set `debug_image`, its trainer reads
+        # `debug_images`: both are read, as in the JAX package
+        debug_images=bool(u.get("debug_images", u.get("debug_image", False))),
     )

@@ -22,7 +22,9 @@ then takes the plateau step (`reduce_lr_on_plateau`'s `lr_scale`), then
 early stopping. The step's losses stay on the device until
 `print_interval`, where they are averaged, logged and written
 (`engine/writer.py`: `training/*`; after a validation `validation/*` and
-`val_metrics/*`). `resume` (the port's `.pth` or the JAX package's full-state
+`val_metrics/*`); with `unlabeled_segmentation.debug_images` the step's
+`debug/*` tensors are drawn there too (`Run.dump_mix_debug`), and are
+otherwise dropped unread. `resume` (the port's `.pth` or the JAX package's full-state
 `.msgpack`) and `auto_resume` (`<log_path>/last_model.pth`) restore the
 state and the iteration (`engine/checkpoints.py`). With `data.depth_teacher`,
 or a depth mix mask from offline depth, on files (not `synthetic`),
@@ -49,6 +51,7 @@ import numpy as np
 import torch
 import yaml
 
+from ..config.loader import merge_monodepth_options
 from ..config.machine import expand_cfg_vars, machine_paths
 from ..data.loader import DataLoader, infinite_iterator, to_device_batch
 from ..data.registry import build_loader
@@ -131,6 +134,7 @@ class Run:
     start_iter: int = 0
     unlabeled_iter: Optional[Iterator] = None
     _extra_iter: Optional[Iterator] = None
+    _said_no_matplotlib: bool = False
 
     def __post_init__(self):
         if self.unlabeled_loader is not None:
@@ -229,6 +233,43 @@ class Run:
             if disp is not None:
                 self.writer.add_image(f"{prefix}_3depth", _colorize(disp), step + 1)
 
+    def dump_mix_debug(self, debug: Dict[str, torch.Tensor], step: int) -> None:
+        """The step's `debug/*` tensors as `<log_path>/class_mix_debug/
+        {step}_{j}_img.jpg` for its first two samples: a 2x2 figure of the
+        mixed image, the mask in grey, the decoded pseudo-label and the
+        depth in plasma (JAX `Trainer._dump_mix_debug`; reference
+        train.py:726-744). Without matplotlib it writes nothing and says so
+        once."""
+        if self._said_no_matplotlib:
+            return
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            from matplotlib import pyplot as plt
+        except ImportError:
+            logger.info("matplotlib is not installed: no class_mix_debug images")
+            self._said_no_matplotlib = True
+            return
+        imgs = _host(debug["debug/mixed_imgs"].float()).transpose(0, 2, 3, 1)
+        masks = _host(debug["debug/mix_mask"].float())
+        pseudo = _host(debug["debug/pseudo_label"])
+        depths = _host(debug["debug/depths"].float()) if "debug/depths" in debug else None
+        out_dir = os.path.join(self.log_path, "class_mix_debug")
+        os.makedirs(out_dir, exist_ok=True)
+        decode = self.val_loader.dataset.decode_segmap_tocolor
+        for j in range(min(2, imgs.shape[0])):
+            fig, axs = plt.subplots(2, 2, figsize=(8, 8))
+            axs[0][0].imshow(np.clip(imgs[j], 0, 1))
+            axs[0][1].imshow(masks[j], cmap="gray")
+            axs[1][0].imshow(decode(pseudo[j]))
+            if depths is not None:
+                axs[1][1].imshow(depths[j], cmap="plasma")
+            for ax in axs.flat:
+                ax.axis("off")
+            fig.savefig(os.path.join(out_dir, f"{step}_{j}_img.jpg"))
+            plt.close(fig)
+
     def tensorboard_training_images(self) -> None:
         """Write the first `n_tensorboard_trainimgs` training images and
         their labels at step 0 (reference train.py:412-431). This iterates
@@ -305,13 +346,11 @@ class Run:
 
 
 def _merge_shared_options(cfg: Dict[str, Any]) -> None:
-    """The monodepth options shared with `data` and `model`, in place
-    (reference train.py:156-160; JAX `Trainer.__init__`)."""
+    """`merge_monodepth_options`, then the data section's frame ids, scales,
+    crop and image size from the monodepth options, in place (JAX
+    `Trainer.__init__`)."""
+    merge_monodepth_options(cfg)
     mono = cfg.get("monodepth_options", {})
-    for section in ("data", "model"):
-        cfg.setdefault(section, {})
-        for k, v in mono.items():
-            cfg[section].setdefault(k, v)
     cfg["data"].setdefault("frame_ids", mono.get("frame_ids", [0, -1, 1]))
     cfg["data"].setdefault("num_scales", mono.get("num_scales", 4))
     if "crop_h" in mono:
@@ -387,7 +426,7 @@ def build_run(cfg: Dict[str, Any], device: str = "cuda:0", run_id: str = "run") 
     with its pretrained weights, the teacher and the optimizer, opens the
     metrics writer in `training.log_path` (default `<LOG_DIR>/<run_id>`) and
     resumes where `resume` or `auto_resume` says."""
-    paths = machine_paths()
+    paths = machine_paths(cfg.get("machine", "ws"))
     expand_cfg_vars(cfg, paths)
     _merge_shared_options(cfg)
     training = cfg["training"]
@@ -513,8 +552,13 @@ def _loop(run: Run, cfg: Dict[str, Any]) -> List[Dict[str, float]]:
                 t1 = time.perf_counter()
                 record: Dict[str, Any] = dict(run.step(batch, unlabeled))
                 record.update(data_seconds=t1 - t0, step_seconds=time.perf_counter() - t1)
+                # the debug tensors stay on the device and are read only where
+                # they are drawn
+                debug = {k: record.pop(k) for k in list(record) if k.startswith("debug/")}
                 records.append(record)
                 pending.append(record)
+                if debug and (step + 1) % print_interval == 0:
+                    run.dump_mix_debug(debug, step)
                 if (step + 1) % print_interval == 0:
                     _write_training_scalars(run, cfg, pending, step)
                     pending = []

@@ -118,10 +118,12 @@ def calc_feature_distance(features: torch.Tensor, bias: Optional[np.ndarray],
     feats = torch.as_tensor(features, dtype=torch.float32)
     n, c, h, w = feats.shape
     if normalize_features:
-        # per channel, with torch.std_mean's unbiased estimator
+        # per channel, with torch.std_mean's unbiased estimator; a constant
+        # channel (an ELU saturated at -1 in a random teacher) stays 0, where
+        # the JAX package divides 0 by 0 and every distance comes out NaN
         mean = torch.mean(feats, dim=(0, 2, 3), keepdim=True)
         std = torch.std(feats, dim=(0, 2, 3), keepdim=True, correction=1)
-        feats = (feats - mean) / std
+        feats = (feats - mean) / torch.where(std > 0, std, torch.ones_like(std))
     if patch_wise:
         px = feats.permute(0, 2, 3, 1).reshape(n * h * w, c)
         d = _cdist(px, px, p).reshape(n, h * w, n, h * w).amin(dim=-1)

@@ -32,7 +32,8 @@ two log1p differ in the last bit at about a quarter of the pixels, which
 moves none of them across a bin edge here (the test counts it), so the
 histograms are equal and the thresholds differ only by the rounding of the
 edges and of expm1; the steps' losses rtol 1e-4, parameters, running statistics and
-EMA parameters atol 1e-5 (f32 on the CPU, op-order rounding only).
+EMA parameters atol 1e-5 (f32 on the CPU, op-order rounding only); their mix
+debug images as tests/test_torch_port_step212.py holds them.
 """
 
 import contextlib
@@ -89,7 +90,7 @@ from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops import losse
 
 from tests.test_torch_port_models import TINY_CFG, calibrate_running_stats, no_flax_dropout
 from tests.test_torch_port_step import TRAINING_CFG
-from tests.test_torch_port_step212 import _jax_draws
+from tests.test_torch_port_step212 import _jax_draws, check_debug_images
 
 N, H, W = 4, 64, 128
 # the exp-210 model (bench.py:246-247), and the depth decoder without pose
@@ -247,11 +248,14 @@ def _jax_step(model_cfg, step_fields, seed, exact_variance=False):
                        ema_params=jax.tree_util.tree_map(jnp.array, variables["params"]))
     variance = two_pass_batchnorm_variance() if exact_variance else contextlib.nullcontext()
     with fnn.intercept_methods(no_flax_dropout), variance:
-        step = jax.jit(make_train_step(model, JaxStepConfig(**step_fields), tx))
+        step = jax.jit(make_train_step(model, JaxStepConfig(**step_fields, debug_images=True),
+                                       tx))
         new_state, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
                                   {k: jnp.asarray(v) for k, v in ubatch.items()}, rng)
-    return (port, batch, ubatch, draws, noise, {k: float(metrics[k]) for k in METRICS},
-            variables, jax.tree_util.tree_map(np.asarray, new_state))
+    ref = {k: float(metrics[k]) for k in METRICS}
+    ref.update({k: np.asarray(v) for k, v in metrics.items() if k.startswith("debug/")})
+    return (port, batch, ubatch, draws, noise, ref, variables,
+            jax.tree_util.tree_map(np.asarray, new_state))
 
 
 @pytest.fixture(scope="module")
@@ -270,11 +274,13 @@ def _check_step(jax_step, model_cfg, fields, frozen):
     teacher = make_teacher(port)
     enc_before = {k: v.clone() for k, v in port.models["encoder"].state_dict().items()}
     opt = build_optimizer(TRAINING_CFG, model_cfg, port)
-    got = train_step(port, opt, to_device_batch(batch, "cpu"), StepConfig(**fields),
-                     tie_break_noise=noise, unlabeled_batch=to_device_batch(ubatch, "cpu"),
-                     teacher=teacher, draws=draws)
+    got = train_step(port, opt, to_device_batch(batch, "cpu"),
+                     StepConfig(**fields, debug_images=True), tie_break_noise=noise,
+                     unlabeled_batch=to_device_batch(ubatch, "cpu"), teacher=teacher,
+                     draws=draws)
     for k in METRICS:
         np.testing.assert_allclose(float(got[k]), ref[k], rtol=1e-4, err_msg=k)
+    check_debug_images(got, ref)
     assert float(got["feat_dist_loss"]) == 0.0 and float(got["mono_loss"]) == 0.0
     assert ref["unlabeled_loss"] > 0
 

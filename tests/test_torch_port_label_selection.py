@@ -167,6 +167,26 @@ def test_feature_distance_matches_jax(p, normalize, patch_wise, bias_weight):
     assert np.all(np.diag(got) == 0) and got.max() > 1
 
 
+@pytest.mark.parametrize("patch_wise", [False, True])
+def test_a_constant_feature_channel_adds_nothing_where_jax_gives_nan(patch_wise):
+    """A channel constant over every sample and position (an ELU saturated
+    at -1 in a random depth teacher, as the synthetic exp-211 smoke trial's)
+    has std 0: JAX's normalization divides 0 by 0 and every distance is
+    NaN, so its IFP chooses nothing; the port leaves the channel at 0, which
+    gives JAX's distances of the other channels."""
+    rng = np.random.default_rng(7)
+    feats = rng.normal(0, 1, (6, 4, 2, 4)).astype(np.float32)
+    feats[:, 2] = -1.0
+    args = dict(p=2, normalize_features=True, patch_wise=patch_wise)
+    got = scoring.calc_feature_distance(torch.from_numpy(feats), None, 0, **args)
+    nan = jax_scoring.calc_feature_distance(np.moveaxis(feats, 1, -1), None, 0, **args)
+    want = jax_scoring.calc_feature_distance(np.moveaxis(feats[:, [0, 1, 3]], 1, -1), None, 0,
+                                             **args)
+    assert np.isnan(np.asarray(nan)).sum() >= 30  # every off-diagonal distance
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    assert np.all(np.isfinite(got)) and got.max() > 1
+
+
 @pytest.mark.parametrize("normalize", [False, True])
 def test_pixel_wise_entropy_matches_jax(normalize):
     logits = np.random.default_rng(6).normal(0, 3, (2, 19, 6, 7)).astype(np.float32)

@@ -187,10 +187,10 @@ def test_train_main_runs_the_exp212_config_shrunk(tmp_path):
     ("model", "depth_args", {"intermediate_aspp": True, "aspp_rates": [1, 2], "dropout": 0.1}),
     ("model", "pose_model_input", "all"),
     ("training", "fuse_unlabeled_forward", True),
-    ("training", "unlabeled_segmentation", {"mix_mask": "depthcomp", "debug_images": True}),
+    ("model", "provide_uncropped_for_pose", True),
     ("model", "depth_args", {"intermediate_aspp": True, "aspp_rates": [1, 2],
                              "use_skips": False}),
-    ("data", "dataset", "inference"),
+    ("training", "pred_layout", "nhwc"),
 ])
 def test_what_the_slice_does_not_run_raises(section, key, value, tmp_path):
     from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine.trainer import (

@@ -18,7 +18,9 @@ CPU is its XLA chain, so one JAX step is the reference for both. The
 photometric chain runs in f32 (`photometric_dtype` null).
 
 Tolerances: losses rtol 1e-4; parameters, running statistics and EMA
-parameters after the step atol 1e-5 (f32, op-order rounding only).
+parameters after the step atol 1e-5 (f32, op-order rounding only). Both
+steps return their mix debug images (`debug_images`): the mixed images and
+the mask's depths within 1e-5, the mix mask and the pseudo-label equal.
 """
 
 import jax
@@ -123,15 +125,17 @@ def jax_step(pad):
     jax_resample.configure_warp("xla")  # the full-f32 warp (the Pallas one rounds to bf16)
     try:
         with fnn.intercept_methods(no_flax_dropout):
-            step = jax.jit(make_train_step(model, JaxStepConfig(**S212), tx))
+            step = jax.jit(make_train_step(model, JaxStepConfig(**S212, debug_images=True),
+                                           tx))
             new_state, metrics = step(
                 state, {k: jnp.asarray(v) for k, v in batch.items()},
                 {k: jnp.asarray(v) for k, v in ubatch.items()}, rng)
     finally:
         jax_resample._WARP_CONFIG.update(saved)
     new_state = jax.tree_util.tree_map(np.asarray, new_state)
-    return (variables, batch, ubatch, _jax_draws(rng, n, h, w),
-            {k: float(metrics[k]) for k in METRICS}, new_state)
+    ref = {k: float(metrics[k]) for k in METRICS}
+    ref.update({k: np.asarray(v) for k, v in metrics.items() if k.startswith("debug/")})
+    return variables, batch, ubatch, _jax_draws(rng, n, h, w), ref, new_state
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["autograd", "k3"])
@@ -143,12 +147,13 @@ def test_s212_step_matches_jax(jax_step, fused):
     opt = build_optimizer(TRAINING_212, PAD_CFG, port)
     launches = reprojection.reprojection_error_grad.launches
     got = train_step(port, opt, to_device_batch(batch, "cpu"),
-                     StepConfig(**S212, fused_pred_loss=fused), tie_break_noise=noise,
-                     unlabeled_batch=to_device_batch(ubatch, "cpu"), teacher=teacher,
-                     draws=draws)
+                     StepConfig(**S212, fused_pred_loss=fused, debug_images=True),
+                     tie_break_noise=noise, unlabeled_batch=to_device_batch(ubatch, "cpu"),
+                     teacher=teacher, draws=draws)
     assert reprojection.reprojection_error_grad.launches == launches  # CPU: plain versions
     for k in METRICS:
         np.testing.assert_allclose(float(got[k]), ref[k], rtol=1e-4, err_msg=k)
+    check_debug_images(got, ref)
     assert ref["mono_total_loss"] > ref["mono_loss"] > 0 and ref["unlabeled_loss"] > 0
 
     want = state_dict_from_jax(new_state.params, new_state.batch_stats, PAD_CFG)
@@ -163,6 +168,23 @@ def test_s212_step_matches_jax(jax_step, fused):
     want_ema = state_dict_from_jax(new_state.ema_params, new_state.batch_stats, PAD_CFG)
     for k, v in teacher.named_parameters():
         np.testing.assert_allclose(v.numpy(), want_ema[k].numpy(), atol=1e-5, err_msg=k)
+
+
+def check_debug_images(got, ref):
+    """The step's `debug/*` tensors (`debug_images`) against the JAX step's:
+    the mixed images (NCHW against NHWC) and the mask's depths within 1e-5
+    (f32, op-order rounding), the mix mask and the pseudo-label equal."""
+    assert sorted(k for k in got if k.startswith("debug/")) == sorted(
+        k for k in ref if k.startswith("debug/")) == [
+        "debug/depths", "debug/mix_mask", "debug/mixed_imgs", "debug/pseudo_label"]
+    np.testing.assert_allclose(got["debug/mixed_imgs"].numpy().transpose(0, 2, 3, 1),
+                               ref["debug/mixed_imgs"], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(got["debug/depths"].numpy(), ref["debug/depths"], atol=1e-5,
+                               rtol=0)
+    assert np.array_equal(got["debug/mix_mask"].numpy(), ref["debug/mix_mask"])
+    assert np.array_equal(got["debug/pseudo_label"].numpy(), ref["debug/pseudo_label"])
+    mask = ref["debug/mix_mask"]
+    assert 0 < mask.mean() < 1 and set(np.unique(mask)) <= {0.0, 1.0}
 
 
 def pad_shared_weights_port(variables):

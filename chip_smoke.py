@@ -100,7 +100,23 @@ Phases, each reported on its own lines:
      artifacts against the eager model (cuDNN TF32 off) and times per
      image; (d) `inference_cli` over the tree's 8 validation images from
      (a)'s run dir: every input's PNGs, the labels against the artifact's
-     argmax and the depths within 1 grey level, time per image by part.
+     argmax and the depths within 1 grey level, time per image by part;
+ 10. options (the model and step options): each cell through `train_main`
+     at full width on the synthetic dataset (3 steps, exact launches per
+     step), then timed (`profile_cli.measure`: step median, device time,
+     idle share, peak memory) in turns with its packaged config: (a)
+     exp-212 with `fuse_unlabeled_forward` (one 2N forward and photometric
+     pass: K1 2, K2 4, K3 2 per step against 4, 8, 4) and then also
+     `model.remat` (peak memory, the recompute's device time); (b) sde with
+     `remat_photometric`, its photometric loss and parameter gradients on
+     one batch held equal to the stored chain's and K1 never launched in a
+     backward (`pred_layout: nhwc` runs the same packed warp and is not a
+     cell of its own); (c) exp-210 with `fuse_unlabeled_forward` (labeled + mixed,
+     no kernel); (d) small sde steps (resnet18, 64x128) card against CPU
+     with the depth decoder's `n_project_skip_ch`, `aspp_pooling` off and
+     `dropout` 0, with `use_skips` off, `pose_model_input: all`,
+     `provide_uncropped_for_pose` and a stereo frame, then channel-wise
+     dropout on the card (each module of a model its own stream).
 The last three lines are the card's name and power limit (as at the
 start), the kernels' JSON record and `{"ok": true, "device": {...}}`. Any failure raises, so the exit code is
 nonzero and no `ok` line is printed. There is no CPU fallback.
@@ -109,6 +125,7 @@ nonzero and no `ok` line is printed. There is no CPU fallback.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import importlib.metadata
 import importlib.util
 import json
@@ -145,7 +162,7 @@ from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine import (
     trainer,
 )
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.label_selection import driver
-from improving_segmentation_with_selfsupervised_depth_tpu_torch.models import joint
+from improving_segmentation_with_selfsupervised_depth_tpu_torch.models import joint, layers
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.models.pose_decoder import (
     PoseDecoder,
 )
@@ -548,7 +565,23 @@ def _angle(a, b):
     return math.degrees(math.acos(float(cos)))
 
 
-def _small_step(label, cfg_name, n, amp=False):
+def _option_frames(batch, stereo):
+    """The batch with the uncropped pose inputs `color_full_aug_{f}_0` (the
+    frames mirrored) and, with `stereo`, a stereo frame "s" (the target
+    shifted by 4 pixels) with `stereo_T` (a 0.1 baseline along x)."""
+    batch = dict(batch)
+    for f in (0, -1, 1):
+        batch[f"color_full_aug_{f}_0"] = np.ascontiguousarray(batch[f"color_aug_{f}_0"][:, :, ::-1])
+    if stereo:
+        n = batch["color_0_0"].shape[0]
+        batch["color_s_0"] = np.roll(batch["color_0_0"], 4, axis=2)
+        batch["color_aug_s_0"] = np.roll(batch["color_aug_0_0"], 4, axis=2)
+        batch["stereo_T"] = np.broadcast_to(np.eye(4, dtype=np.float32), (n, 4, 4)).copy()
+        batch["stereo_T"][:, 0, 3] = 0.1
+    return batch
+
+
+def _small_step(label, cfg_name, n, amp=False, model_opts=None):
     """A small train step (resnet18, 64x128, batch n) on the card (kernels)
     against the same step on the CPU (plain versions): same weights, batches
     and draws, f32 convolutions on both sides. Checks the losses, the
@@ -564,10 +597,16 @@ def _small_step(label, cfg_name, n, amp=False):
 
     With `amp` the model runs under bf16 autocast on both devices and only
     the losses are held, to BF16_LOSS_RTOL: `_small_amp_backward` holds the
-    bf16 backward. Returns the step config."""
+    bf16 backward. `model_opts` updates the model's config (`frame_ids`
+    the photometric loss's too); the batch carries the uncropped pose
+    inputs and, with a stereo frame, its image and `stereo_T`. Returns the
+    step config."""
     cfg = _packaged_cfg(cfg_name)
     cfg["model"]["backbone_name"] = "resnet18"
     cfg["model"]["depth_args"] = {"intermediate_aspp": True, "aspp_rates": [1, 2]}
+    cfg["model"].update(model_opts or {})
+    if "frame_ids" in cfg["model"]:
+        cfg["monodepth_options"]["frame_ids"] = cfg["model"]["frame_ids"]
     cfg["training"]["photometric_dtype"] = None
     cfg["training"]["amp"] = amp  # amp: the model and the SSIM/L1 chain in bf16
     h, w = 64, 128
@@ -576,10 +615,13 @@ def _small_step(label, cfg_name, n, amp=False):
     torch.manual_seed(0)
     models = [_no_dropout(joint.build_model(cfg["model"], 19, amp=amp))]
     models.append(copy.deepcopy(models[0]).to(devices[1]))
-    batch = synthetic.make_synthetic_batch(n, h, w, seed=3)
-    ubatch = synthetic.make_synthetic_batch(n, h, w, seed=4, with_unlabeled_extras=True)
+    stereo = "s" in step_cfg.frame_ids
+    batch = _option_frames(synthetic.make_synthetic_batch(n, h, w, seed=3), stereo)
+    ubatch = _option_frames(synthetic.make_synthetic_batch(n, h, w, seed=4,
+                                                           with_unlabeled_extras=True), stereo)
     gen = torch.Generator().manual_seed(5)
-    noise, noise_u = (torch.randn((n, 2, h, w), generator=gen) for _ in range(2))
+    n_src = len(step_cfg.frame_ids) - 1
+    noise, noise_u = (torch.randn((n, n_src, h, w), generator=gen) for _ in range(2))
     results, after, grads = [], [], []
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
@@ -2111,6 +2153,232 @@ def phase_experiments():
     return launches
 
 
+# exp-212's launches per step (phase_slices): two photometric passes, each
+# one K1 launch per source frame, K2 for its identity and its pred error, K3
+# in the backward; fused, one pass over 2N
+EXP212_PER_STEP = {"warp": 4, "reprojection": 8, "reprojection_grad": 4}
+EXP212_FUSED_PER_STEP = {"warp": 2, "reprojection": 4, "reprojection_grad": 2}
+# sde: each source frame warped at its 4 scales with one K1 launch, the
+# identity error through K2
+SDE_PACK_PER_STEP = {"warp": 2, "reprojection": 2, "reprojection_grad": 0}
+NO_KERNELS = {"warp": 0, "reprojection": 0, "reprojection_grad": 0}
+# the photometric loss's gradients with and without `remat_photometric`, on
+# the card, f32 chain: |remat - stored| / |stored| over all parameters (the
+# same per-pixel arithmetic; cuDNN's backward accumulates in its own order)
+REMAT_GRAD_RTOL = 1e-3
+
+
+def _option_run(label, cfg, per_step):
+    """`cfg` through train_main (`_run_slice`: 3 steps, exact launches) on a
+    run that is kept, with two device batches, for `_measure_turns`.
+    Returns (launches, the first step's record, run, batches, the device
+    memory the run keeps: model, teacher, optimizer state, gradients,
+    batches)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    run = trainer.build_run(cfg, "cuda:0")
+    try:
+        launches, records = _run_slice(label, cfg, per_step, run=run)
+        batches = [run.device_batches() for _ in range(2)]
+    finally:
+        run.close()
+    torch.cuda.synchronize()
+    return launches, records[0], run, batches, torch.cuda.memory_allocated() - before
+
+
+def _measure_turns(label, cells):
+    """`profile_cli.measure` (one warm-up, 4 timed steps and 1 profiled
+    step; the profiler's processing of a step's ~19,000 kernels takes most
+    of a cell's time) of each cell's run in turns, the packaged config
+    first; prints the step median, the device time per step (with K1-K3's),
+    the idle share and the peak memory, and the first steps' losses side by
+    side. The cells' runs stay on the card together, so a run's peak is
+    taken as it would be alone: what the run keeps plus the step's peak
+    above what was allocated before it (`peak_bytes` is replaced by that).
+    Returns {cell: measure result}."""
+    results = {}
+    classes = ("K1 warp", "K2 reprojection", "K3 reprojection grad")
+    for name, cell in cells.items():
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        m = profile_cli.measure(cell["run"], cell["batches"], steps=4, profiled=1)
+        m["peak_bytes"] = cell["resident"] + m["peak_bytes"] - base
+        results[name] = m
+        kernels = sum(m["by_class"][c][0] for c in classes if c in m["by_class"])
+        print(f"[{label}] {name}: step median {m['median_s']:.4f} s, device "
+              f"{m['device_ms']:.2f} ms per step (K1-K3 {kernels:.3f} ms), idle "
+              f"{m['idle']:.3f}, peak {m['peak_bytes'] / 2**30:.3f} GiB; launches per step "
+              f"{cell['per_step']}")
+    first = {name: cell["first"] for name, cell in cells.items()}
+    for k in next(iter(first.values())):
+        if k.endswith("loss") and not k.startswith("val/"):
+            print(f"[{label}] first step {k}: " + ", ".join(
+                f"{name} {r[k]:.6f}" for name, r in first.items() if k in r))
+    return results
+
+
+def _cells(label, variants):
+    """Each (name, cfg, per step launches) through `_option_run`."""
+    cells = {}
+    for name, cfg, per_step in variants:
+        launches, first, run, batches, resident = _option_run(f"{label} {name}", cfg, per_step)
+        print(f"[{label} {name}] the run keeps {resident / 2**30:.3f} GiB on the card")
+        cells[name] = dict(launches=launches, first=first, run=run, batches=batches,
+                           per_step=per_step, resident=resident)
+    return cells
+
+
+def _remat_photometric_check(label, run, batch):
+    """One forward of sde's model (train mode) on `batch`, then the
+    photometric loss and its parameter gradients with and without
+    `remat_photometric`, the chain and the convolutions in f32 (TF32 rounds
+    the backward's inputs to 10 bits, which turns op-order rounding into
+    ~2e-3 of the gradient): equal losses and gradients, and K1 never
+    launched in a backward."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _remat_photometric_grads(label, run, batch)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _remat_photometric_grads(label, run, batch):
+    cfg = dataclasses.replace(run.step_cfg, photometric_dtype=None)
+    n, _, h, w = batch["color_0_0"].shape
+    noise = torch.randn((n, len(cfg.frame_ids) - 1, h, w), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(0))
+    params = [p for p in run.model.parameters() if p.requires_grad]
+    run.model.train()
+    outputs = run.model(batch)
+    got = {}
+    for name, variant in (("stored", dataclasses.replace(cfg, remat_photometric=False)),
+                          ("remat_photometric", dataclasses.replace(
+                              cfg, remat_photometric=True))):
+        _reset_launches()
+        loss = train_steps._monodepth_loss(variant, batch, outputs, None, noise)
+        forward = _read_launches()
+        grads = torch.autograd.grad(loss, params, retain_graph=True, allow_unused=True)
+        torch.cuda.synchronize()
+        flat = torch.cat([g.flatten() for g in grads if g is not None]).double()
+        got[name] = (float(loss.detach()), flat, forward, _read_launches())
+    ref_loss, ref_grad, _, _ = got["stored"]
+    for name, (loss, grad, forward, after) in got.items():
+        rel = float((grad - ref_grad).norm() / ref_grad.norm())
+        print(f"[{label}] {name}: loss {loss:.7f} (stored {ref_loss:.7f}), gradients "
+              f"|{name} - stored| / |stored| {rel:.3e} (at most {REMAT_GRAD_RTOL:g}); "
+              f"launches in the loss {forward}, after the backward {after}")
+        if not (abs(loss - ref_loss) <= 1e-5 * abs(ref_loss) and rel <= REMAT_GRAD_RTOL):
+            raise AssertionError(f"{label}: {name} differs from the stored chain")
+        if after != forward or forward["warp"] != 2:
+            raise AssertionError(f"{label}: {name} launches {forward} then {after}")
+    del outputs
+
+
+def _dropout_on_card(label):
+    """Channel-wise dropout (p 0.3) on the card: whole planes zeroed, the
+    others scaled by 1 / (1 - p), the draws from its own CUDA generator; then
+    a decoder with dropout in every ConvBlock through one train-mode step's
+    forward and backward."""
+    p = 0.3
+    drop = layers.ChannelDropout(p, seed=1)
+    x = torch.rand((8, 64, 32, 32), device="cuda") + 0.5
+    y = drop(x)
+    zeroed = (y == 0).all(dim=(2, 3))
+    scale_err = float((y[~zeroed] - x[~zeroed] / (1 - p)).abs().max())
+    print(f"[{label}] ChannelDropout p {p}: {float(zeroed.float().mean()):.3f} of 512 planes "
+          f"zeroed, survivors' max |y - x / (1 - p)| {scale_err:.3e}, generator on "
+          f"{drop.generator.device}")
+    if not (torch.equal((y != 0).any(dim=(2, 3)), ~zeroed) and scale_err <= 1e-6
+            and 0.2 < float(zeroed.float().mean()) < 0.4 and drop.generator.device.type == "cuda"):
+        raise AssertionError(f"{label}: channel dropout")
+    cfg = _packaged_cfg("sde_supervised_synthetic.yml")
+    cfg["model"].update(backbone_name="resnet18", depth_args={
+        "intermediate_aspp": True, "aspp_rates": [1, 2], "dropout": 0.2})
+    model = joint.build_model(cfg["model"], 19).cuda().train()
+    batch = synthetic.to_device_batch(synthetic.make_synthetic_batch(2, 64, 128, seed=3), "cuda")
+    out = model(batch)
+    sum(out[f"disp_{s}"].sum() for s in range(4)).backward()
+    drops = [m for m in model.modules() if isinstance(m, layers.ChannelDropout)]
+    blocks = [m for m in model.modules() if isinstance(m, layers.ConvBlock)]
+    if not (len(drops) == len(blocks) > 0
+            and all(m.generator.device.type == "cuda" for m in drops)
+            and len({m.seed for m in drops}) == len(drops)
+            and all(torch.isfinite(out[f"disp_{s}"]).all() for s in range(4))):
+        raise AssertionError(f"{label}: the decoders' dropout")
+    print(f"[{label}] decoders with dropout 0.2 in their {len(drops)} ConvBlocks, each "
+          "with its own seed: one train-mode forward and backward on the card, finite")
+
+
+def phase_options():
+    """The model and step options (see the module docstring): (a) exp-212
+    with `fuse_unlabeled_forward`, then also `model.remat`; (b) sde with
+    `remat_photometric`, and its losses and gradients against the stored
+    chain's; (c) exp-210 with `fuse_unlabeled_forward`; each
+    against its packaged config in the same turns; (d) small steps with the
+    model options, card against CPU, and dropout on the card. Returns the
+    launches of every run."""
+    label = "options"
+    launches = {}
+    times = [time.perf_counter()]
+    exp212 = _packaged_cfg("exp212_pad_online_synthetic.yml")
+    fused = copy.deepcopy(exp212)
+    fused["training"]["fuse_unlabeled_forward"] = True
+    remat = copy.deepcopy(fused)
+    remat["model"]["remat"] = True
+    cells = _cells(label + " a", (("exp212", exp212, EXP212_PER_STEP),
+                                  ("exp212 fused", fused, EXP212_FUSED_PER_STEP),
+                                  ("exp212 fused + remat", remat, EXP212_FUSED_PER_STEP)))
+    launches["options_exp212_fused"] = cells["exp212 fused"]["launches"]
+    launches["options_exp212_fused_remat"] = cells["exp212 fused + remat"]["launches"]
+    m = _measure_turns(label + " a", cells)
+    remat_m, fused_m = m["exp212 fused + remat"], m["exp212 fused"]
+    print(f"[{label} a] remat: peak {remat_m['peak_bytes'] / 2**30:.3f} GiB against "
+          f"{fused_m['peak_bytes'] / 2**30:.3f} GiB, the recompute "
+          f"{remat_m['device_ms'] - fused_m['device_ms']:+.2f} ms of device time per step")
+    del cells, m
+    times.append(time.perf_counter())
+
+    sde = _packaged_cfg("sde_supervised_synthetic.yml")
+    remat_ph = copy.deepcopy(sde)
+    remat_ph["training"]["remat_photometric"] = True
+    cells = _cells(label + " b", (("sde", sde, SDE_PACK_PER_STEP),
+                                  ("sde remat_photometric", remat_ph, SDE_PACK_PER_STEP)))
+    launches["options_sde_remat_photometric"] = cells["sde remat_photometric"]["launches"]
+    _measure_turns(label + " b", cells)
+    stored = cells["sde"]
+    _remat_photometric_check(label + " b", stored["run"], stored["batches"][0][0])
+    del cells, stored
+    times.append(time.perf_counter())
+
+    exp210 = _packaged_cfg("exp210_depthcomp_synthetic.yml")
+    fused = copy.deepcopy(exp210)
+    fused["training"]["fuse_unlabeled_forward"] = True
+    cells = _cells(label + " c", (("exp210", exp210, NO_KERNELS),
+                                  ("exp210 fused", fused, NO_KERNELS)))
+    launches["options_exp210_fused"] = cells["exp210 fused"]["launches"]
+    _measure_turns(label + " c", cells)
+    del cells
+    times.append(time.perf_counter())
+
+    aspp = {"intermediate_aspp": True, "aspp_rates": [1, 2]}
+    for name, opts in (
+            ("n_project_skip_ch 16, aspp_pooling off, dropout 0",
+             {"depth_args": dict(aspp, n_project_skip_ch=16, aspp_pooling=False, dropout=0.0)}),
+            ("use_skips off", {"depth_args": dict(aspp, use_skips=False)}),
+            ("pose_model_input all", {"pose_model_input": "all"}),
+            ("provide_uncropped_for_pose", {"provide_uncropped_for_pose": True}),
+            ("stereo frames (0, -1, 1, s)", {"frame_ids": [0, -1, 1, "s"]})):
+        _small_step(f"{label} d small sde step, {name}", "sde_supervised_synthetic.yml", 2,
+                    model_opts=opts)
+    _dropout_on_card(label + " d")
+    times.append(time.perf_counter())
+    print(f"[{label}] part times: " + ", ".join(
+        f"{p} {b - a:.1f} s" for p, a, b in zip("abcd", times, times[1:])))
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
     card = phase_device()
@@ -2126,6 +2394,7 @@ def main():
         launches.update(phase_cityscapes_exp212(records))
         launches.update(phase_exp211())
         launches.update(phase_experiments())
+        launches.update(phase_options())
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     main_path = launches["exp212_pad_online_cityscapes"]

@@ -6,7 +6,10 @@ Flax `params`/`batch_stats` trees (as numpy arrays) and returns the state_dict
 that `models.joint.JointSegmentationDepth.load_state_dict` takes. Conv
 kernels go from (kH, kW, I, O) to (O, I, kH, kW); BatchNorm scale/bias/mean/
 var to weight/bias/running_mean/running_var (a decoder ConvBlock's
-`BatchNorm_0`, dec9's `batch_norm`, to `block.1`).
+`BatchNorm_0`, dec9's `batch_norm`, to `block.1`; a decoder's
+`skip_proj_{i}` to the skip-projection slot; an ASPP without its pooled
+branch under `aspp_pooling: false`). The pose encoder's `conv1` keeps its
+input channels, 3 per frame it stacks.
 """
 
 from __future__ import annotations
@@ -61,30 +64,36 @@ def _conv_bn_relu(sd, prefix, p, s):
 
 def _depth_decoder(sd, prefix, p, s, depth_args):
     # positions in the reference ModuleList: per stage upconv_i_0, the skip
-    # slot (stages > 0, no parameters), upconv_i_1; then the dispconv slots
+    # projection's slot (stages > 0; no parameters without projection),
+    # upconv_i_1; then the dispconv slots
     n_upconv = depth_args.get("n_upconv", 4)
     order = []
     for i in range(n_upconv, -1, -1):
-        order += [f"upconv_{i}_0"] + (["skip"] if i > 0 else []) + [f"upconv_{i}_1"]
+        order += [f"upconv_{i}_0"] + ([f"skip_proj_{i}"] if i > 0 else []) + [f"upconv_{i}_1"]
     order += [f"dispconv_{sc}" for sc in _DISP_SCALES]
     for pos, name in enumerate(order):
         tpre = f"{prefix}decoder.{pos}."
         if name not in p:
-            continue  # skip slot or absent disparity head
+            continue  # parameter-free skip slot or absent disparity head
         mp = p[name]
-        if name.startswith("dispconv"):
+        if name.startswith("skip_proj"):
+            _conv_bn_relu(sd, tpre[:-1], mp, s[name])
+        elif name.startswith("dispconv"):
             _conv(sd, tpre + "conv.weight", mp["Conv_0"]["kernel"])
             sd[tpre + "conv.bias"] = _t(mp["Conv_0"]["bias"])
         elif "ConvBNReLU_0" in mp:  # ASPP: branches, pooled branch last, projection
             ms = s[name]
             n_conv = sum(k.startswith("ConvBNReLU_") for k in mp) - 1
-            for k in range(n_conv - 1):
+            n_plain = n_conv - 1 if depth_args.get("aspp_pooling", True) else n_conv
+            for k in range(n_plain):
                 _conv_bn_relu(sd, tpre + f"convs.{k}", mp[f"ConvBNReLU_{k}"],
                               ms[f"ConvBNReLU_{k}"])
-            pooled = f"ConvBNReLU_{n_conv - 1}"  # [pool, conv, bn, relu]
-            _conv(sd, tpre + f"convs.{n_conv - 1}.1.weight", mp[pooled]["Conv_0"]["kernel"])
-            _bn(sd, tpre + f"convs.{n_conv - 1}.2", mp[pooled]["BatchNorm_0"],
-                ms[pooled]["BatchNorm_0"])
+            if n_plain < n_conv:
+                pooled = f"ConvBNReLU_{n_conv - 1}"  # [pool, conv, bn, relu]
+                _conv(sd, tpre + f"convs.{n_conv - 1}.1.weight",
+                      mp[pooled]["Conv_0"]["kernel"])
+                _bn(sd, tpre + f"convs.{n_conv - 1}.2", mp[pooled]["BatchNorm_0"],
+                    ms[pooled]["BatchNorm_0"])
             _conv_bn_relu(sd, tpre + "project", mp[f"ConvBNReLU_{n_conv}"],
                           ms[f"ConvBNReLU_{n_conv}"])
         else:  # ConvBlock: Conv3x3, then BatchNorm (dec9's batch_norm) in slot 1

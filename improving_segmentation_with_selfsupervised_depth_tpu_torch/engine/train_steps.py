@@ -17,6 +17,28 @@ configurations:
   its confidence-weighted pseudo-label loss; then one backward, the optimizer
   step and the EMA update.
 
+With `fuse_unlabeled_forward` two of the semi-supervised step's student
+forwards become one forward of the two batches concatenated (2N), gated as in
+the JAX package (JAX train_steps.py:255-330): with online DepthMix and the
+photometric loss, labeled + unlabeled, with one photometric pass over 2N
+whose loss stands for both halves' (`mono_loss` = `mono_loss_u` = lambda x
+the 2N loss: each per-scale loss is a batch mean); with offline DepthMix and
+no photometric loss, labeled + mixed, the mix mask, strong transform and
+mixed soft labels made first, and the 2N forward without pose (as in JAX,
+the pose network's BatchNorm then sees no batch: the labeled half takes no
+pose either). The 2N batch holds the keys both batches have with equal
+trailing shapes (JAX's filter). Train-mode BatchNorm sees joint 2N
+statistics, and dropout draws one set of masks over 2N. With the knob set
+and neither gate open the step runs unfused, as in JAX.
+
+`training.pred_layout` is accepted with the JAX package's values, and both
+run the one packed warp (`ops/photometric.py`): the port's tensors are NCHW
+in either, and the per-(frame, scale) calls of JAX's "nhwc" compute the same
+losses. `remat_photometric` checkpoints the photometric loss chain
+(`torch.utils.checkpoint`): the warps stay saved, so K1 never runs in the
+backward, and the automask's identity errors and their tie-break draw are
+taken before the checkpoint, so K2 does not run again for them.
+
 The semi-supervised step also runs offline DepthMix (`depthmix_online_depth`
 off, the exp-210 `s210` step): the mask's depths are the unlabeled batch's
 `pseudo_depth`, and the model may have no depth decoder and no pose network.
@@ -48,8 +70,8 @@ import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from .. import not_ported
 from ..ops import photometric
 from ..ops.image import color_jitter, gaussian_blur, uniform
 from ..ops.losses import IGNORE_INDEX, berhu, cross_entropy2d
@@ -67,6 +89,7 @@ from .state import ema_model_names, update_ema
 from .trainer_depth_eval import eval_depth_metrics
 
 _PHOTOMETRIC_DTYPES = {None: None, "bfloat16": torch.bfloat16}
+_PRED_LAYOUTS = ("pack", "nhwc")  # the JAX package's; both run the packed warp
 EMA_ALPHA = 0.99  # the teacher's EMA rate (JAX StepConfig.ema_alpha)
 
 
@@ -95,6 +118,9 @@ class StepConfig:
     # the per-scale pred error through K2 forward and K3 backward
     # (training.fused_reprojection)
     fused_pred_loss: bool = False
+    # recompute the photometric loss chain in the backward, not the warps
+    # (training.remat_photometric)
+    remat_photometric: bool = False
     # the model's depth decoder and pose network (the eval step's branches)
     disable_monodepth: bool = False
     disable_pose: bool = False
@@ -112,6 +138,9 @@ class StepConfig:
     depthcomp_foreground_threshold: Any = 0.0
     depthmix_online_depth: bool = False
     backward_first_pseudo_label: bool = False
+    # one 2N student forward for two of the semi-supervised step's forwards
+    # (training.fuse_unlabeled_forward; the module docstring)
+    fuse_unlabeled_forward: bool = False
     use_ema: bool = False
     ema_names: Optional[Tuple[str, ...]] = None
     # the semi-supervised step also returns its mixed images, mix mask,
@@ -129,6 +158,8 @@ class StepDraws:
     tie_break_noise_u: the unlabeled photometric pass's tie-break draw,
       (N, F, H, W) standard normal (the labeled pass's is the step's
       `tie_break_noise`).
+    tie_break_noise_fused: the fused photometric pass's draw over the 2N
+      batch, (2N, F, H, W), in place of both (`fuse_unlabeled_forward`).
     jitter: (brightness, contrast, saturation, hue) of `color_jitter`.
     jitter_apply, blur_apply: the U(0, 1) draws that decide whether jitter
       (> 0.2) and blur (> 0.5) apply.
@@ -140,6 +171,7 @@ class StepDraws:
     """
 
     tie_break_noise_u: Optional[torch.Tensor] = None
+    tie_break_noise_fused: Optional[torch.Tensor] = None
     jitter: Optional[Sequence[float]] = None
     jitter_apply: Optional[float] = None
     blur_sigma: Optional[float] = None
@@ -153,13 +185,35 @@ def _monodepth_loss(cfg: StepConfig, batch, outputs, generator, tie_break_noise)
     outputs = photometric.generate_images_pred(
         batch, outputs, scales=cfg.scales, frame_ids=cfg.frame_ids,
         min_depth=cfg.min_depth, max_depth=cfg.max_depth)
-    losses = photometric.compute_losses(
-        batch, outputs, scales=cfg.scales, frame_ids=cfg.frame_ids,
-        disparity_smoothness=cfg.disparity_smoothness, no_ssim=cfg.no_ssim,
-        avg_reprojection=cfg.avg_reprojection, disable_automasking=cfg.disable_automasking,
-        fused_pred=cfg.fused_pred_loss, pred_dtype=cfg.photometric_dtype,
-        generator=generator, tie_break_noise=tie_break_noise)
+    kw = dict(scales=cfg.scales, frame_ids=cfg.frame_ids,
+              disparity_smoothness=cfg.disparity_smoothness, no_ssim=cfg.no_ssim,
+              avg_reprojection=cfg.avg_reprojection,
+              disable_automasking=cfg.disable_automasking, fused_pred=cfg.fused_pred_loss,
+              pred_dtype=cfg.photometric_dtype)
+    if cfg.remat_photometric:
+        identity = None
+        if not cfg.disable_automasking:
+            identity = photometric.identity_reprojection(
+                batch, frame_ids=cfg.frame_ids, no_ssim=cfg.no_ssim,
+                avg_reprojection=cfg.avg_reprojection, generator=generator,
+                tie_break_noise=tie_break_noise)
+        losses = checkpoint(lambda out: photometric.compute_losses(
+            batch, out, identity_losses=identity, **kw), outputs, use_reentrant=False)
+    else:
+        losses = photometric.compute_losses(batch, outputs, generator=generator,
+                                            tie_break_noise=tie_break_noise, **kw)
     return cfg.monodepth_lambda * losses["loss"]
+
+
+def _concat_batches(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
+    """The 2N batch of the fused forward: the keys of `a` that `b` holds with
+    the same trailing shape (JAX train_steps.py:296-299)."""
+    return {k: torch.cat([v, b[k]]) for k, v in a.items()
+            if k in b and b[k].shape[1:] == v.shape[1:]}
+
+
+def _split_outputs(outputs: Dict[str, torch.Tensor], n: int):
+    return ({k: v[:n] for k, v in outputs.items()}, {k: v[n:] for k, v in outputs.items()})
 
 
 def _feat_dist(outputs) -> torch.Tensor:
@@ -258,10 +312,10 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
     is drawn from `generator` (see ops/photometric.py::compute_losses); the
     semi-supervised branch, on with `cfg.unlabeled` and `cfg.use_ema`, needs
     `unlabeled_batch` and `teacher` and takes its draws from `draws`.
+    `cfg.unlabeled` without `cfg.use_ema` is the supervised step, the
+    unlabeled batch unused, as in the JAX package.
     """
     semi = cfg.unlabeled and cfg.use_ema
-    if cfg.unlabeled and not cfg.use_ema:
-        raise not_ported("unlabeled_segmentation without the EMA teacher", "exp-210 options")
     if semi and (unlabeled_batch is None or teacher is None):
         raise ValueError("the semi-supervised step needs unlabeled_batch and teacher")
     model.train()
@@ -280,13 +334,50 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
                                               teacher_softmax)
             argmax_u_w = teacher_softmax.argmax(1)
 
-    zero = torch.zeros((), device=batch[key_of("color_aug", 0, 0)].device)
-    outputs = model(batch)
-    mono_loss = feat_dist_loss = zero
-    if cfg.monodepth_lambda > 0:
-        mono_loss = _monodepth_loss(cfg, batch, outputs, generator, tie_break_noise)
-        if cfg.feat_dist_lambda > 0:
-            feat_dist_loss = cfg.feat_dist_lambda * _feat_dist(outputs)
+    # the fused forward's two modes (JAX train_steps.py:255-285)
+    fused = (cfg.fuse_unlabeled_forward and semi and cfg.depthmix_online_depth
+             and cfg.monodepth_lambda > 0)
+    fused_mixed = (cfg.fuse_unlabeled_forward and semi and not cfg.depthmix_online_depth
+                   and cfg.monodepth_lambda == 0)
+    image_key = key_of("color_aug", 0, 0)
+    n_lab = batch[image_key].shape[0]
+    if fused and unlabeled_batch[image_key].shape[0] != n_lab:
+        raise ValueError("fuse_unlabeled_forward requires equal labeled/unlabeled batch "
+                         "sizes (the photometric batch-mean split is only exact then)")
+    pre_mix = None
+    if fused_mixed:
+        # parameter-free here (offline pseudo-depth and the teacher's
+        # argmax): the mixed batch is made before the student forward
+        depths = (unlabeled_batch["pseudo_depth"][:, 0] if "pseudo_depth" in unlabeled_batch
+                  else None)
+        with torch.no_grad():
+            mix_mask = generate_mix_mask(cfg, argmax_u_w, depths, draws, generator)
+            mixed_imgs = strong_transform(cfg, mix_mask, unlabeled_batch[image_key], draws,
+                                          generator)
+            mixed_softmax, _ = mix(mix_mask, teacher_softmax)
+        pre_mix = (depths, mix_mask, mixed_imgs, mixed_softmax)
+
+    zero = torch.zeros((), device=batch[image_key].device)
+    mono_loss = mono_loss_u = feat_dist_loss = zero
+    out_1 = out_s = None
+    if fused:
+        comb = _concat_batches(batch, unlabeled_batch)
+        outputs = model(comb)
+        # each per-scale loss is a batch mean: the 2N loss stands for each half's
+        mono_loss = mono_loss_u = _monodepth_loss(cfg, comb, outputs, generator,
+                                                  draws.tie_break_noise_fused)
+        outputs, out_1 = _split_outputs(outputs, n_lab)
+    elif fused_mixed:
+        mixed_batch = dict(unlabeled_batch)
+        mixed_batch[image_key] = pre_mix[2]
+        outputs, out_s = _split_outputs(
+            model(_concat_batches(batch, mixed_batch), use_pose=False), n_lab)
+    else:
+        outputs = model(batch)
+        if cfg.monodepth_lambda > 0:
+            mono_loss = _monodepth_loss(cfg, batch, outputs, generator, tie_break_noise)
+    if cfg.monodepth_lambda > 0 and cfg.feat_dist_lambda > 0:
+        feat_dist_loss = cfg.feat_dist_lambda * _feat_dist(outputs)
     pseudo_depth_loss = zero
     if cfg.pseudo_depth_lambda > 0:
         pseudo_depth_loss = cfg.pseudo_depth_lambda * _pseudo_depth_loss(
@@ -298,13 +389,16 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
 
     metrics = {}
     if semi:
-        unlabeled_imgs = unlabeled_batch[key_of("color_aug", 0, 0)]
-        mono_loss_u = l_1 = zero
-        if cfg.depthmix_online_depth:
-            out_1 = model(unlabeled_batch)
+        l_1 = zero
+        if fused_mixed:
+            depths, mix_mask, mixed_imgs, mixed_softmax = pre_mix
+        elif cfg.depthmix_online_depth:
+            if not fused:
+                out_1 = model(unlabeled_batch)
+                if cfg.monodepth_lambda > 0:
+                    mono_loss_u = _monodepth_loss(cfg, unlabeled_batch, out_1, generator,
+                                                  draws.tie_break_noise_u)
             if cfg.monodepth_lambda > 0:
-                mono_loss_u = _monodepth_loss(cfg, unlabeled_batch, out_1, generator,
-                                              draws.tie_break_noise_u)
                 d = out_1["disp_0"].detach()
                 dmin = d.amin((1, 2, 3), keepdim=True)
                 dmax = d.amax((1, 2, 3), keepdim=True)
@@ -318,13 +412,15 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
         else:
             depths = None
 
-        with torch.no_grad():
-            mix_mask = generate_mix_mask(cfg, argmax_u_w, depths, draws, generator)
-            mixed_imgs = strong_transform(cfg, mix_mask, unlabeled_imgs, draws, generator)
-            mixed_softmax, _ = mix(mix_mask, teacher_softmax)
-        mixed_batch = dict(unlabeled_batch)
-        mixed_batch[key_of("color_aug", 0, 0)] = mixed_imgs
-        out_s = model(mixed_batch, use_pose=False)
+        if not fused_mixed:
+            with torch.no_grad():
+                mix_mask = generate_mix_mask(cfg, argmax_u_w, depths, draws, generator)
+                mixed_imgs = strong_transform(cfg, mix_mask, unlabeled_batch[image_key],
+                                              draws, generator)
+                mixed_softmax, _ = mix(mix_mask, teacher_softmax)
+            mixed_batch = dict(unlabeled_batch)
+            mixed_batch[image_key] = mixed_imgs
+            out_s = model(mixed_batch, use_pose=False)
         l_2, pseudo_label = pseudo_label_loss(cfg, mixed_softmax, out_s["semantics"])
 
         seg_total = seg_total + l_2 + l_1
@@ -414,17 +510,15 @@ def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor], cfg: StepC
 
 def step_config_from_cfg(cfg: Dict[str, Any]) -> StepConfig:
     """StepConfig from the experiment config (the JAX `step_config_from_cfg`
-    schema); raises for what the port does not run yet."""
+    schema)."""
     t = cfg.get("training", {})
     m = cfg.get("model", {})
     mono = dict(cfg.get("monodepth_options", {}))
     mono.update(t.get("monodepth_loss") or {})
     u = t.get("unlabeled_segmentation") or {}
-    if t.get("fuse_unlabeled_forward", False):
-        raise not_ported("training.fuse_unlabeled_forward", "exp-212 options")
-    if t.get("pred_layout", "pack") != "pack" or t.get("remat_photometric", False):
-        raise not_ported("training.pred_layout other than 'pack' / remat_photometric",
-                         "amp/bf16 model")
+    pred_layout = t.get("pred_layout", "pack")
+    if pred_layout not in _PRED_LAYOUTS:
+        raise ValueError(f"training.pred_layout {pred_layout!r}: one of {_PRED_LAYOUTS}")
     # under amp the chain is bf16, as in the JAX package
     dtype_name = "bfloat16" if t.get("amp", False) else t.get("photometric_dtype")
     if dtype_name not in _PHOTOMETRIC_DTYPES:
@@ -448,6 +542,7 @@ def step_config_from_cfg(cfg: Dict[str, Any]) -> StepConfig:
         disable_automasking=mono.get("disable_automasking", False),
         photometric_dtype=_PHOTOMETRIC_DTYPES[dtype_name],
         fused_pred_loss=t.get("fused_reprojection", False),
+        remat_photometric=t.get("remat_photometric", False),
         disable_monodepth=m.get("disable_monodepth", False),
         disable_pose=m.get("disable_pose", False),
         has_depth_teacher=cfg.get("data", {}).get("depth_teacher") is not None,
@@ -463,6 +558,7 @@ def step_config_from_cfg(cfg: Dict[str, Any]) -> StepConfig:
                                         else fg_thr),
         depthmix_online_depth=u.get("depthmix_online_depth", False),
         backward_first_pseudo_label=u.get("backward_first_pseudo_label", False),
+        fuse_unlabeled_forward=t.get("fuse_unlabeled_forward", False),
         use_ema=bool(u),
         ema_names=ema_model_names(t, m),
         # the reference's experiments set `debug_image`, its trainer reads

@@ -445,7 +445,7 @@ def build_run(cfg: Dict[str, Any], device: str = "cuda:0", run_id: str = "run") 
             "save_monodepth_ema", False) and not step_cfg.use_ema:
         raise ValueError("training.save_monodepth_ema needs the EMA teacher "
                          "(training.unlabeled_segmentation)")
-    model = build_model(cfg["model"], n_classes, amp=training.get("amp", False))
+    model = build_model(cfg["model"], n_classes, amp=training.get("amp", False), seed=seed)
     apply_pretraining(model, cfg["model"], paths["DOWNLOAD_MODEL_DIR"])
     model = model.to(device)
 

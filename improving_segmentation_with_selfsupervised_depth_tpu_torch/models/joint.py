@@ -9,7 +9,9 @@ the reference checkpoint's (engine/full_model_interop.py:10-21):
   models.depth          DepthDecoder (monodepth on, not mtl_pad)
   models.segmentation   JointSegDepthDecoder
   models.mtl_decoder    PAD (segmentation_name: mtl_pad)
-  models.pose_encoder   ResNetEncoder(depth 18, num_input_images=2)
+  models.pose_encoder   ResNetEncoder(depth 18, num_input_images=2, or the
+                        number of non-stereo frames with
+                        `pose_model_input: all`)
   models.pose           PoseDecoder
   models.imnet_encoder  the frozen ImageNet ResNet of the feature-distance
                         loss (`enable_imnet_encoder`)
@@ -19,7 +21,12 @@ Forward takes the batch dict (see ops/photometric.py) and returns "bottleneck",
 with the ImageNet encoder "encoder_features" (the backbone's last feature)
 and "imnet_features" (the ImageNet encoder's, without gradient), and, unless
 `use_pose=False`, "axisangle_0_{f}", "translation_0_{f}" (N, 2, 1, 3) and
-"cam_T_cam_0_{f}" (N, 4, 4). Train or eval mode is the module's own
+"cam_T_cam_0_{f}" (N, 4, 4) for each non-stereo source frame f (a stereo
+frame "s" warps with the batch's `stereo_T`; frames (0, "s") have no pose
+network). The pose network reads `color_aug_{f}_0`, or the uncropped
+`color_full_aug_{f}_0` with `provide_uncropped_for_pose`. With `remat` the
+encoder and the ImageNet encoder checkpoint each residual block
+(`models/resnet.py`). Train or eval mode is the module's own
 (`model.train()` / `model.eval()`); with `freeze_backbone_bn` the encoder
 stays in eval mode, so its BatchNorm normalizes with its running statistics
 and leaves them unchanged (the JAX `train_encoder_bn=False`). The ImageNet
@@ -39,20 +46,14 @@ from typing import Any, Dict
 import torch
 import torch.nn as nn
 
-from .. import not_ported
 from ..ops.geometry import transformation_from_parameters
 from ..ops.photometric import key_of
 from .depth_decoder import DepthDecoder
-from .layers import init_weights
+from .layers import init_weights, seed_dropout
 from .pose_decoder import PoseDecoder
 from .resnet import ResNetEncoder, num_ch_enc
 from .seg_decoder import PAD, JointSegDepthDecoder
 
-# `model.depth_args` keys the port's DepthDecoder takes; the JAX decoder's
-# others run only at their defaults
-_DEPTH_ARGS = {"intermediate_aspp", "aspp_rates", "num_ch_dec", "n_upconv", "batch_norm"}
-_DEPTH_ARG_DEFAULTS = {"use_skips": True, "aspp_pooling": True, "n_project_skip_ch": -1,
-                       "dropout": 0.0, "num_output_channels": 1}
 _BACKBONE_DEPTH = {"resnet18": 18, "resnet34": 34, "resnet50": 50, "resnet101": 101,
                    "resnet152": 152}
 
@@ -61,22 +62,29 @@ class JointSegmentationDepth(nn.Module):
     def __init__(self, backbone_depth: int = 101, replace_stride_with_dilation=None,
                  segmentation_name="joint_seg_depth_dec", segmentation_args=None,
                  depth_args=None, num_classes: int = 19, frame_ids=(0, -1, 1),
-                 num_scales: int = 4, pose_pair_batching: bool = True,
+                 num_scales: int = 4, pose_model_input: str = "pairs",
+                 pose_pair_batching: bool = True, provide_uncropped_for_pose: bool = False,
                  disable_monodepth: bool = False, disable_pose: bool = False,
                  freeze_backbone_bn: bool = False, enable_imnet_encoder: bool = False,
-                 imnet_encoder_dilation: bool = True, amp: bool = False):
+                 imnet_encoder_dilation: bool = True, remat: bool = False, amp: bool = False):
         super().__init__()
-        if frame_ids[0] != 0 or "s" in frame_ids:
-            raise ValueError(f"frame_ids must start with 0 and hold no stereo 's': {frame_ids}")
+        if frame_ids[0] != 0:
+            raise ValueError(f"frame_ids must start with 0: {frame_ids}")
         self.frame_ids = tuple(frame_ids)
+        # the frames the pose network reads, stereo left out
+        self.pose_frames = tuple(f for f in self.frame_ids if f != "s")
+        self.pose_model_input = pose_model_input
         self.pose_pair_batching = pose_pair_batching
+        self.pose_source = "color_full_aug" if provide_uncropped_for_pose else "color_aug"
         self.freeze_backbone_bn = freeze_backbone_bn
         self.amp = amp
-        self.use_pose_net = not disable_pose and not disable_monodepth and len(frame_ids) > 1
+        self.use_pose_net = (not disable_pose and not disable_monodepth and len(frame_ids) > 1
+                             and self.frame_ids != (0, "s"))
         ch_enc = num_ch_enc(backbone_depth)
         depth_args = dict(depth_args or {})
         models = {"encoder": ResNetEncoder(
-            backbone_depth, replace_stride_with_dilation=replace_stride_with_dilation)}
+            backbone_depth, replace_stride_with_dilation=replace_stride_with_dilation,
+            remat=remat)}
         seg_args = dict(segmentation_args or {})
         if segmentation_name == "mtl_pad":
             models["mtl_decoder"] = PAD(ch_enc, num_classes, depth_args=depth_args, **seg_args)
@@ -88,12 +96,14 @@ class JointSegmentationDepth(nn.Module):
                 models["segmentation"] = JointSegDepthDecoder(
                     ch_enc, num_classes, depth_args=depth_args, **seg_args)
         if self.use_pose_net:
-            models["pose_encoder"] = ResNetEncoder(18, num_input_images=2)
+            n_pose = 2 if pose_model_input == "pairs" else len(self.pose_frames)
+            models["pose_encoder"] = ResNetEncoder(18, num_input_images=n_pose)
             models["pose"] = PoseDecoder(num_ch_enc(18), 1, 2)
         if enable_imnet_encoder:
             models["imnet_encoder"] = ResNetEncoder(
                 backbone_depth, replace_stride_with_dilation=(
-                    replace_stride_with_dilation if imnet_encoder_dilation else None))
+                    replace_stride_with_dilation if imnet_encoder_dilation else None),
+                remat=remat)
         self.models = nn.ModuleDict(models)
         init_weights(self)
 
@@ -110,16 +120,31 @@ class JointSegmentationDepth(nn.Module):
         return torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=self.amp)
 
     def predict_poses(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Pairwise poses in temporal order, inverted for past frames
-        (reference joint_segmentation_depth.py:20-70). With
+        """Poses of the non-stereo source frames (reference
+        joint_segmentation_depth.py:20-70). With `pose_model_input: pairs`,
+        pairwise in temporal order, inverted for past frames; with
         `pose_pair_batching` the pairs share one pose-encoder forward, so its
-        train-mode BatchNorm sees all pairs at once, as in the JAX package."""
+        train-mode BatchNorm sees all pairs at once, as in the JAX package.
+        Otherwise one forward of all frames stacked on the channels, frame i
+        of `frame_ids[1:]` taking the decoder's pose i, not inverted."""
+        feats = {f: inputs[key_of(self.pose_source, f, 0)] for f in self.pose_frames}
+        encoder, pose = self.models["pose_encoder"], self.models["pose"]
+        if self.pose_model_input != "pairs":
+            with self._autocast(feats[0]):
+                axisangle, translation = pose([encoder(torch.cat(list(feats.values()), 1))])
+            outputs = {}
+            for i, f in enumerate(self.frame_ids[1:]):
+                if f == "s":
+                    continue
+                outputs[key_of("axisangle", 0, f)] = axisangle
+                outputs[key_of("translation", 0, f)] = translation
+                outputs[key_of("cam_T_cam", 0, f)] = transformation_from_parameters(
+                    axisangle[:, i], translation[:, i])
+            return outputs
         outputs = {}
-        feats = {f: inputs[key_of("color_aug", f, 0)] for f in self.frame_ids}
-        pair_frames = list(self.frame_ids[1:])
+        pair_frames = list(self.pose_frames[1:])
         pair_inputs = {f: torch.cat([feats[f], feats[0]] if f < 0 else [feats[0], feats[f]],
                                     dim=1) for f in pair_frames}
-        encoder, pose = self.models["pose_encoder"], self.models["pose"]
         with self._autocast(feats[0]):
             if self.pose_pair_batching and len(pair_frames) > 1:
                 n = feats[0].shape[0]
@@ -170,26 +195,17 @@ class JointSegmentationDepth(nn.Module):
 
 
 def build_model(model_cfg: Dict[str, Any], n_classes: int,
-                amp: bool = False) -> JointSegmentationDepth:
+                amp: bool = False, seed: int = 0) -> JointSegmentationDepth:
     """Config-dict factory with the JAX package's `build_model` schema;
-    `amp` is the JAX `dtype=bfloat16` (`training.amp`)."""
+    `amp` is the JAX `dtype=bfloat16` (`training.amp`); `seed` is the run's,
+    from which each depth-decoder dropout takes its own stream."""
     m = dict(model_cfg)
-    if m.get("pose_model_input", "pairs") != "pairs":
-        raise not_ported("model.pose_model_input other than 'pairs'", "exp-210 options")
-    if m.get("provide_uncropped_for_pose", False):
-        raise not_ported("model.provide_uncropped_for_pose", "exp-210 options")
-    if m.get("remat", False):
-        raise not_ported("model.remat", "amp/bf16 model: remat")
     rsd = m.get("replace_stride_with_dilation")
     depth_args = dict(m.get("depth_args") or {})
     depth_args.pop("max_scale_size", None)  # static shapes make it redundant
-    for key in set(depth_args) - _DEPTH_ARGS:
-        value = depth_args.pop(key)
-        if _DEPTH_ARG_DEFAULTS.get(key, object()) != value:
-            raise not_ported(f"model.depth_args.{key}: {value!r}", "exp-211 model options")
     seg_args = dict(m.get("segmentation_args") or {})
     seg_args.pop("weights", None)  # pretrained weights are a checkpoint concern
-    return JointSegmentationDepth(
+    model = JointSegmentationDepth(
         backbone_depth=_BACKBONE_DEPTH[m.get("backbone_name", "resnet101")],
         replace_stride_with_dilation=tuple(rsd) if rsd else None,
         segmentation_name=m.get("segmentation_name"),
@@ -198,11 +214,16 @@ def build_model(model_cfg: Dict[str, Any], n_classes: int,
         num_classes=n_classes,
         frame_ids=tuple(m.get("frame_ids", (0, -1, 1))),
         num_scales=m.get("num_scales", 4),
+        pose_model_input=m.get("pose_model_input", "pairs"),
         pose_pair_batching=m.get("pose_pair_batching", True),
+        provide_uncropped_for_pose=m.get("provide_uncropped_for_pose", False),
         disable_monodepth=m.get("disable_monodepth", False),
         disable_pose=m.get("disable_pose", False),
         freeze_backbone_bn=m.get("freeze_backbone_bn", False),
         enable_imnet_encoder=m.get("enable_imnet_encoder", False),
         imnet_encoder_dilation=m.get("imnet_encoder_dilation", True),
+        remat=m.get("remat", False),
         amp=amp,
     )
+    seed_dropout(model, seed)
+    return model

@@ -7,8 +7,9 @@ nearest-upsample + concat + conv, not the TPU's phase-packed convolutions
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -26,6 +27,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     keeps the input's dtype.
     """
 
+    # set while `frozen_running_stats` is active: train mode then normalizes
+    # with the batch statistics but leaves the running ones as they are
+    _stats_frozen = False
+
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
 
@@ -33,16 +38,34 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        if not BatchNorm2d._stats_frozen:
+            self._track(x)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _track(self, x: torch.Tensor) -> None:
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Train-mode BatchNorm leaves its running statistics alone inside: the
+    recompute of a checkpointed block (`torch.utils.checkpoint`) runs its
+    forward a second time, and the statistics take one update per step, as
+    under the JAX package's `nn.remat`."""
+    prev = BatchNorm2d._stats_frozen
+    BatchNorm2d._stats_frozen = True
+    try:
+        yield
+    finally:
+        BatchNorm2d._stats_frozen = prev
 
 
 def conv_bn_relu(in_ch: int, out_ch: int, kernel: int = 1, dilation: int = 1) -> nn.Sequential:
-    """Conv (no bias) + BN + ReLU; keys `0.weight`, `1.*`."""
+    """Conv (no bias) + BN + ReLU (JAX `ConvBNReLU`); keys `0.weight`, `1.*`."""
     pad = ((kernel - 1) // 2) * dilation
     return nn.Sequential(
         nn.Conv2d(in_ch, out_ch, kernel, padding=pad, dilation=dilation, bias=False),
@@ -61,16 +84,54 @@ class Conv3x3(nn.Module):
         return self.conv(self.pad(x))
 
 
-class ConvBlock(nn.Module):
-    """Conv3x3 + optional BatchNorm + ELU (reference monodepth_layers.py:108-124);
-    keys `block.0.conv.*` and, with `bn`, `block.1.*` (the reference's
-    BatchNorm slot, an Identity without it)."""
+class ChannelDropout(nn.Dropout2d):
+    """`nn.Dropout2d` drawing from its own generator: in train mode each
+    (sample, channel) plane is zeroed with probability `p` and the others
+    are scaled by 1 / (1 - p) (JAX `nn.Dropout(broadcast_dims=(1, 2))`).
+    The draws come from `generator`, never from the global RNG; left None,
+    it is made on the input's device at the first draw, seeded with `seed`
+    (`seed_dropout` gives each module of a model a seed of its own)."""
 
-    def __init__(self, in_ch: int, out_ch: int, bn: bool = False):
+    def __init__(self, p: float, seed: int = 0):
+        super().__init__(p)
+        self.seed = seed
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return x
+        if self.generator is None:
+            self.generator = torch.Generator(device=x.device).manual_seed(self.seed)
+        keep = torch.rand((*x.shape[:2], 1, 1), generator=self.generator,
+                          device=x.device) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
+                                                                 device=x.device))
+
+
+def seed_dropout(model: nn.Module, seed: int) -> None:
+    """Give every `ChannelDropout` of `model` its own stream, derived from the
+    run's `seed`: one seed per module, drawn in module order from a generator
+    seeded with `seed` (the JAX package folds one key per module out of the
+    step's dropout key). Restarts each module's stream."""
+    drops = [m for m in model.modules() if isinstance(m, ChannelDropout)]
+    seeds = torch.randint(0, 2**62, (len(drops),),
+                          generator=torch.Generator().manual_seed(seed), device="cpu")
+    for m, s in zip(drops, seeds.tolist()):
+        m.seed, m.generator = s, None
+
+
+class ConvBlock(nn.Module):
+    """Conv3x3 + optional BatchNorm + ELU + optional channel-wise dropout
+    (reference monodepth_layers.py:108-124); keys `block.0.conv.*` and, with
+    `bn`, `block.1.*` (the reference's BatchNorm slot, an Identity without
+    it)."""
+
+    def __init__(self, in_ch: int, out_ch: int, bn: bool = False, dropout: float = 0.0):
         super().__init__()
         self.block = nn.Sequential(Conv3x3(in_ch, out_ch),
                                    BatchNorm2d(out_ch) if bn else nn.Identity(),
-                                   nn.ELU(inplace=True))
+                                   nn.ELU(inplace=True),
+                                   *([ChannelDropout(dropout)] if dropout > 0 else []))
 
     def forward(self, x):
         return self.block(x)
@@ -78,22 +139,28 @@ class ConvBlock(nn.Module):
 
 class ASPP(nn.Module):
     """Atrous spatial pyramid pooling (reference models/model_parts.py:5-32,
-    torchvision deeplabv3 layout): 1x1 branch, dilated 3x3 branches and a
-    global-pool branch -> 1x1 projection + BN + ReLU + dropout(0.5)."""
+    torchvision deeplabv3 layout): 1x1 branch, dilated 3x3 branches and,
+    with `pooling`, a global-pool branch -> 1x1 projection + BN + ReLU +
+    dropout(0.5)."""
 
-    def __init__(self, in_ch: int, atrous_rates: Sequence[int], out_ch: int = 256):
+    def __init__(self, in_ch: int, atrous_rates: Sequence[int], out_ch: int = 256,
+                 pooling: bool = True):
         super().__init__()
+        self.pooling = pooling
         convs = [conv_bn_relu(in_ch, out_ch, 1)]
         convs += [conv_bn_relu(in_ch, out_ch, 3, dilation=r) for r in atrous_rates]
-        convs.append(nn.Sequential(nn.AdaptiveAvgPool2d(1), *conv_bn_relu(in_ch, out_ch, 1)))
+        if pooling:
+            convs.append(nn.Sequential(nn.AdaptiveAvgPool2d(1),
+                                       *conv_bn_relu(in_ch, out_ch, 1)))
         self.convs = nn.ModuleList(convs)
         self.project = nn.Sequential(*conv_bn_relu(len(convs) * out_ch, out_ch, 1),
                                      nn.Dropout(0.5))
 
     def forward(self, x):
         branches = [conv(x) for conv in self.convs]
-        # the pooled 1x1 map, bilinearly upsampled, is a broadcast
-        branches[-1] = branches[-1].expand(-1, -1, *x.shape[2:])
+        if self.pooling:
+            # the pooled 1x1 map, bilinearly upsampled, is a broadcast
+            branches[-1] = branches[-1].expand(-1, -1, *x.shape[2:])
         return self.project(torch.cat(branches, dim=1))
 
 

@@ -3,18 +3,25 @@
 Port of the JAX package's `models/resnet.py`: returns [f0 (stride 2), f1 (4),
 f2, f3, f4] with channels (64, 64, 128, 256, 512), x4 from f1 for depth >= 50;
 input normalization (x - 0.45) / 0.225; `replace_stride_with_dilation` with
-torchvision semantics; `num_input_images` stacked frames for the pose encoder.
+torchvision semantics; `num_input_images` stacked frames for the pose encoder; with `remat` each
+residual block is checkpointed (`torch.utils.checkpoint`), its activations
+recomputed in the backward (JAX `nn.remat`, models/resnet.py:116-119), and
+its BatchNorm running statistics updated once per forward, not again in the
+recompute.
 State-dict keys are the reference's: `encoder.conv1.weight`,
 `encoder.layer1.0.conv1.weight`, `encoder.layer1.0.downsample.0.weight`, ...
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
+import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
-from .layers import BatchNorm2d
+from .layers import BatchNorm2d, frozen_running_stats
 
 STAGES = {
     18: ("basic", (2, 2, 2, 2)),
@@ -74,8 +81,10 @@ class ResNet(nn.Module):
     """torchvision ResNet trunk (no pooling head) returning the 5-level pyramid."""
 
     def __init__(self, depth: int, in_ch: int = 3,
-                 replace_stride_with_dilation: Optional[Sequence[bool]] = None):
+                 replace_stride_with_dilation: Optional[Sequence[bool]] = None,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         kind, sizes = STAGES[depth]
         block = BasicBlock if kind == "basic" else Bottleneck
         dilate = tuple(replace_stride_with_dilation or (False, False, False))
@@ -105,12 +114,21 @@ class ResNet(nn.Module):
         layers += [block(out_ch, planes, 1, self._dilation) for _ in range(1, blocks)]
         return nn.Sequential(*layers)
 
+    def _stage(self, layer: nn.Sequential, x):
+        if not (self.remat and torch.is_grad_enabled()):
+            return layer(x)
+        for block in layer:
+            x = checkpoint(block, x, use_reentrant=False,
+                           context_fn=lambda: (contextlib.nullcontext(),
+                                               frozen_running_stats()))
+        return x
+
     def forward(self, x):
         f0 = self.relu(self.bn1(self.conv1(x)))
-        f1 = self.layer1(self.maxpool(f0))
-        f2 = self.layer2(f1)
-        f3 = self.layer3(f2)
-        f4 = self.layer4(f3)
+        f1 = self._stage(self.layer1, self.maxpool(f0))
+        f2 = self._stage(self.layer2, f1)
+        f3 = self._stage(self.layer3, f2)
+        f4 = self._stage(self.layer4, f3)
         return [f0, f1, f2, f3, f4]
 
 
@@ -118,10 +136,12 @@ class ResNetEncoder(nn.Module):
     """The reference ResnetEncoder: normalization + a ResNet under `encoder`."""
 
     def __init__(self, depth: int = 101, num_input_images: int = 1,
-                 replace_stride_with_dilation: Optional[Sequence[bool]] = None):
+                 replace_stride_with_dilation: Optional[Sequence[bool]] = None,
+                 remat: bool = False):
         super().__init__()
         self.num_ch_enc = num_ch_enc(depth)
-        self.encoder = ResNet(depth, 3 * num_input_images, replace_stride_with_dilation)
+        self.encoder = ResNet(depth, 3 * num_input_images, replace_stride_with_dilation,
+                              remat)
 
     def forward(self, x):
         return self.encoder((x - 0.45) / 0.225)

@@ -1,9 +1,10 @@
 """Self-supervised monodepth photometric loss (NCHW).
 
-Port of the JAX package's `ops/photometric.py` in its `pred_layout="pack"`
-form: per scale, the predicted disparity is upsampled to full resolution,
-turned into depth, backprojected and reprojected through the predicted pose;
-each source frame is warped at all scales with one K1 launch. The error is
+Port of the JAX package's `ops/photometric.py`: per scale, the predicted
+disparity is upsampled to full resolution, turned into depth, backprojected
+and reprojected through the predicted pose (a stereo frame "s" through the
+batch's `stereo_T`); each source frame is warped at all scales with one K1
+launch (the JAX package's `pred_layout="pack"`). The error is
 0.85*SSIM + 0.15*L1, min-reduced over sources with identity-reprojection
 automasking (identity errors through K2, plus 1e-5 tie-break noise), plus
 edge-aware smoothness weighted by `disparity_smoothness / 2**scale`.
@@ -20,7 +21,8 @@ one).
 For validation: `generate_depth_test_pred`, the pose-free depths of every
 scale, and `depth_metrics` (abs_rel, sq_rel, rms, log_rms, a1-a3).
 
-Batch keys: color_{f}_{s} (N, 3, H, W), K_{s} / inv_K_{s} (N, 4, 4).
+Batch keys: color_{f}_{s} (N, 3, H, W), K_{s} / inv_K_{s} (N, 4, 4), and
+stereo_T (N, 4, 4) with a stereo frame.
 Output keys read: disp_{s} (N, 1, H/2^s, W/2^s), cam_T_cam_0_{f} (N, 4, 4).
 """
 
@@ -75,7 +77,8 @@ def generate_images_pred(inputs: Dict[str, torch.Tensor], outputs: Dict[str, tor
         out[key_of("depth", 0, scale)] = depth
         cam_points = backproject_depth(depth, inputs[key_of("inv_K", 0)])
         for frame_id in frame_ids[1:]:
-            T = outputs[key_of("cam_T_cam", 0, frame_id)]
+            T = (inputs["stereo_T"] if frame_id == "s"
+                 else outputs[key_of("cam_T_cam", 0, frame_id)])
             frame_grids[frame_id].append(
                 project_3d(cam_points, inputs[key_of("K", 0)], T, full_h, full_w))
     for frame_id in frame_ids[1:]:
@@ -87,6 +90,29 @@ def generate_images_pred(inputs: Dict[str, torch.Tensor], outputs: Dict[str, tor
     return out
 
 
+def identity_reprojection(inputs: Dict[str, torch.Tensor], *, frame_ids: Sequence[Any],
+                          no_ssim: bool = False, avg_reprojection: bool = False,
+                          generator: Optional[torch.Generator] = None,
+                          tie_break_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The automask's identity-reprojection errors (N, F, H, W), or (N, 1,
+    H, W) with `avg_reprojection`, plus the 1e-5 tie-break noise: one
+    standard-normal draw shared across scales (as in the JAX package),
+    injected as `tie_break_noise` or drawn from `generator`. Scale-independent
+    and never differentiated: through K2."""
+    target = inputs[key_of("color", 0, 0)]
+    identity_losses = torch.cat([
+        reprojection_loss_nchw(inputs[key_of("color", f, 0)], target, no_ssim=True)
+        if no_ssim else reprojection_error(inputs[key_of("color", f, 0)], target)
+        for f in frame_ids[1:]
+    ], dim=1)
+    if avg_reprojection:
+        identity_losses = identity_losses.mean(1, keepdim=True)
+    if tie_break_noise is None:
+        tie_break_noise = torch.randn(identity_losses.shape, generator=generator,
+                                      device=identity_losses.device)
+    return identity_losses + tie_break_noise * 1e-5
+
+
 def compute_losses(inputs: Dict[str, torch.Tensor], outputs: Dict[str, torch.Tensor], *,
                    scales: Sequence[int], frame_ids: Sequence[Any],
                    disparity_smoothness: float, no_ssim: bool = False,
@@ -94,14 +120,14 @@ def compute_losses(inputs: Dict[str, torch.Tensor], outputs: Dict[str, torch.Ten
                    fused_pred: bool = False,
                    pred_dtype: Optional[torch.dtype] = None,
                    generator: Optional[torch.Generator] = None,
-                   tie_break_noise: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                   tie_break_noise: Optional[torch.Tensor] = None,
+                   identity_losses: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """Min-reprojection photometric loss with automasking + smoothness.
 
     Reference loss/monodepth_loss.py:118-192; returns per-scale losses and
-    the total under "loss". The identity-reprojection tie-break noise is one
-    standard-normal draw shared across scales (as in the JAX package), scaled
-    by 1e-5: `tie_break_noise` injects the draw, shaped like the identity
-    errors (N, F, H, W); otherwise it is drawn from `generator`.
+    the total under "loss". The automask's identity errors are
+    `identity_losses` or `identity_reprojection` of the batch, whose
+    tie-break noise is `tie_break_noise` or drawn from `generator`.
 
     `fused_pred` (with SSIM on) takes the per-scale pred error through K2/K3
     on the packed warps `color_pred_pack_{f}`, in f32: like the JAX fused
@@ -111,20 +137,10 @@ def compute_losses(inputs: Dict[str, torch.Tensor], outputs: Dict[str, torch.Ten
     total_loss = 0.0
     target = inputs[key_of("color", 0, 0)]
 
-    identity_losses = None
-    if not disable_automasking:
-        # scale-independent and never differentiated: through K2
-        identity_losses = torch.cat([
-            reprojection_loss_nchw(inputs[key_of("color", f, 0)], target, no_ssim=True)
-            if no_ssim else reprojection_error(inputs[key_of("color", f, 0)], target)
-            for f in frame_ids[1:]
-        ], dim=1)
-        if avg_reprojection:
-            identity_losses = identity_losses.mean(1, keepdim=True)
-        if tie_break_noise is None:
-            tie_break_noise = torch.randn(identity_losses.shape, generator=generator,
-                                          device=identity_losses.device)
-        identity_losses = identity_losses + tie_break_noise * 1e-5
+    if not disable_automasking and identity_losses is None:
+        identity_losses = identity_reprojection(
+            inputs, frame_ids=frame_ids, no_ssim=no_ssim, avg_reprojection=avg_reprojection,
+            generator=generator, tie_break_noise=tie_break_noise)
 
     fused = {}
     if fused_pred and not no_ssim:

@@ -66,6 +66,16 @@ STEP_FIELDS = dict(monodepth_lambda=1.0, segmentation_lambda=1.0, frame_ids=(0, 
                    scales=(0, 1, 2, 3), photometric_dtype=None)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def few_torch_threads():
+    """Two intra-op threads for the port's CPU ops: the test processes share
+    the machine's cores, and more threads each only wait on one another."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 def test_train_step_matches_jax(xla_warp):
     model, variables, batch = jax_tiny_model()
     variables, port = shared_weights(variables, batch)
@@ -192,13 +202,20 @@ def test_train_main_runs_the_exp212_config_shrunk(tmp_path):
                              "use_skips": False}),
     ("training", "pred_layout", "nhwc"),
 ])
-def test_what_the_slice_does_not_run_raises(section, key, value, tmp_path):
+def test_train_main_runs_each_option_on_the_cpu(section, key, value, tmp_path):
+    """The shrunk SDE config with each option takes its 2 steps through
+    train_main on the CPU, with finite losses that move
+    (tests/test_torch_port_options.py holds each option against the JAX
+    package)."""
     from improving_segmentation_with_selfsupervised_depth_tpu_torch.engine.trainer import (
         train_main,
     )
 
     cfg = _tiny_train_cfg(log_path=tmp_path)
     cfg[section][key] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_main(cfg, device="cpu")
+    records = train_main(cfg, device="cpu")
+    assert len(records) == 2
+    for r in records:
+        assert all(np.isfinite(v) for v in r.values())
+    assert records[0]["total_loss"] != records[1]["total_loss"]
 

@@ -11,8 +11,8 @@ Phases, each reported on its own lines:
      main-path shapes, at odd shapes and at the edges of K2/K3's tiles, with
      times (at the main path's batch-2 shapes, and at the synthetic
      exp-212's batch 4) of both, of one PyTorch reference call where there
-     is one (each the median of one-call CUDA-event timings), and the least
-     time the card
+     is one (each CUDA events around 50 calls in a row, over 50), and the
+     least time the card
      could take (bytes over its memory rate, or operations over its f32 rate);
      K1's and `F.grid_sample`'s device times (profiler) at K1's main shape,
      on per-pixel random and on smooth grids;
@@ -116,7 +116,19 @@ Phases, each reported on its own lines:
      with the depth decoder's `n_project_skip_ch`, `aspp_pooling` off and
      `dropout` 0, with `use_skips` off, `pose_model_input: all`,
      `provide_uncropped_for_pose` and a stereo frame, then channel-wise
-     dropout on the card (each module of a model its own stream).
+     dropout on the card (each module of a model its own stream);
+ 11. data_parallel (`parallel/`, data-parallel training): (a) exp-212 at
+     full width, global batch 4 + 4, TF32 off, the optimizer's rates x 1e-3,
+     in one process on the whole batch against two ranks over gloo sharing
+     cuda:0 (the one card), from the same weights, batches and draws: 2
+     steps with the mix mask held at one, then 1 step with the depthcomp
+     mask (its flips bounded, see DP_FLIP_KEYS): every loss, the largest
+     parameter and EMA-parameter difference, the BatchNorm running
+     statistics, the last step's gradients, each rank's launches per step
+     (K1 4, K2 8, K3 4); (b) world size 1 over NCCL, the student in DDP
+     against the plain step in turns (losses, step median, device time,
+     peak memory); (c) the two ranks' step times (one shared card: not a
+     multi-GPU speed).
 The last three lines are the card's name and power limit (as at the
 start), the kernels' JSON record and `{"ok": true, "device": {...}}`. Any failure raises, so the exit code is
 nonzero and no `ok` line is printed. There is no CPU fallback.
@@ -171,6 +183,7 @@ from improving_segmentation_with_selfsupervised_depth_tpu_torch.models.resnet im
     num_ch_enc,
 )
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops import geometry
+from improving_segmentation_with_selfsupervised_depth_tpu_torch.parallel import compare, launch
 from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops.cuda import (
     _build,
     reprojection,
@@ -301,20 +314,20 @@ def phase_build():
     return secs
 
 
-def _time_ms(fn, reps=20):
-    """Median of `reps` CUDA-event timings of fn() after a warmup."""
+def _time_ms(fn, reps=50):
+    """Time per call of fn(): CUDA events around `reps` calls in a row after a
+    warm-up call, over `reps` (the wrapper's host work overlaps the device's
+    work of the calls before it)."""
     fn()
     torch.cuda.synchronize()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _device_ms(fn, reps=20):
@@ -537,6 +550,16 @@ def phase_kernels():
             records["reprojection"].update(k2)
             records["reprojection_grad"].update(
                 k3, library_call="torch.autograd backward of the f32 plain SSIM+L1 chain")
+            # the device alone (profiler), as K1's device_ms
+            for key, call in (
+                    ("reprojection", lambda: reprojection.reprojection_error(pred, target, reps)),
+                    ("reprojection_grad", lambda: reprojection.reprojection_error_grad(
+                        pred, target, g, reps))):
+                d_ms, count, names = _device_ms(call)
+                records[key]["device_ms"] = d_ms
+                print(f"[kernels] {key} device time per call at {shape}: {d_ms:.4f} ms "
+                      f"({count:g} kernels per call: {names}), "
+                      f"{records[key]['bound_ms'] / d_ms:.1%} of its bound")
         else:
             records["reprojection"]["identity"] = k2
     return records
@@ -820,16 +843,8 @@ def phase_small_steps():
     _small_amp_backward("small sde_dec6 backward, amp (bf16)", "sde_dec6_crop_synthetic.yml", 4)
 
 
-def _reset_launches():
-    warp.warp_bilinear_nchw.launches = 0
-    reprojection.reprojection_error.launches = 0
-    reprojection.reprojection_error_grad.launches = 0
-
-
-def _read_launches():
-    return {"warp": warp.warp_bilinear_nchw.launches,
-            "reprojection": reprojection.reprojection_error.launches,
-            "reprojection_grad": reprojection.reprojection_error_grad.launches}
+_reset_launches = compare.reset_launches
+_read_launches = compare.launches
 
 
 def _run_slice(label, cfg, per_step, per_val_batch=None, n_validations=0, run=None):
@@ -1009,7 +1024,7 @@ def _count_launches(fn):
 def _sde_extras(label, run):
     """One more train step and one validation batch, each counted alone, the
     optimizer update's device time (profiler), and the ImageNet encoder's
-    forward time (CUDA events, median of 10) where the model has one."""
+    forward time (CUDA events around 10 calls, over 10) where the model has one."""
     batch, _ = run.device_batches()
     per_step = _count_launches(lambda: run.step(batch, None))
     val_batch = next(run.val_batches())
@@ -2046,7 +2061,7 @@ def _experiments_export(tmp, label, run_dir):
     with torch.no_grad():
         art_ms = _time_ms(lambda: serve(x), reps=5)
         eager_ms = _time_ms(lambda: model({"color_aug_0_0": x}, use_pose=False), reps=5)
-    print(f"[{label}] time per image at batch 2, 512x1024 (CUDA events, median of 5, cuDNN "
+    print(f"[{label}] time per image at batch 2, 512x1024 (CUDA events around 5 calls, cuDNN "
           f"TF32 {tf32}): artifact {art_ms / 2:.3f} ms, eager forward {eager_ms / 2:.3f} ms")
     del model, x
     torch.cuda.empty_cache()
@@ -2379,6 +2394,181 @@ def phase_options():
     return launches
 
 
+# data_parallel: the exp-212 optimizer at a thousandth of its rates (see
+# tests/test_torch_port_parallel.py: the step's discrete decisions flip near
+# ties under op-order rounding, and full rates carry a flip of step 1 into
+# step 2); the card-vs-CPU tolerances of the small steps
+DP_LR_SCALE = 1e-3
+DP_PARAM_ATOL = 1e-4
+DP_OVERHEAD_RTOL = 1e-5  # world size 1: DDP against the plain path, same weights
+DP_GRAD_NORM_RTOL = 1e-2  # the gradients' norm, 2 ranks against one process
+# With the depthcomp mask the comparison is chaotic at full width: the random
+# student's disparity is nearly flat (its range ~4e-5 of its value), and
+# DepthMix min-max normalizes it per sample, which turns the ranks' f32
+# rounding (cuDNN's algorithms at 2 rows are not those at 4; the BatchNorm
+# statistics' order) into differences of ~3% in the mask's depths (measured
+# on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md). The mask then flips at
+# ~1e-4 of the pixels, each flip swaps a mixed pixel and its soft label, the
+# pseudo-label loss moves by ~2e-3, and the
+# ASPP pooling branch's BatchNorm (4 values a channel) carries the flipped
+# pixels into the projection's statistics (~10%) and the first convolution's
+# gradient (~90%). So the depthcomp step is held to DP_FLIP_RTOL on the losses
+# over the mixed batch and DP_FLIP_SHARE on the flipped pixels, its
+# statistics and gradients printed; the same step with the mask held at one
+# (`mix_mask: null`) is held to the card-vs-CPU tolerances in full.
+DP_FLIP_KEYS = ("unlabeled_loss", "segmentation_total_loss", "total_loss")
+DP_FLIP_RTOL = 1e-2
+DP_FLIP_SHARE = 1e-2
+
+
+def _dp_spec(mix_mask="depthcomp", steps=2):
+    """exp-212 (`exp212_pad_online_synthetic.yml`, fused_reprojection on) as a
+    `parallel/compare.py` step spec: random weights from the seed, global
+    batch 4 + 4 at 512x512 from seeded synthetic frames, TF32 off, the mix
+    debug tensors returned."""
+    cfg = _packaged_cfg("exp212_pad_online_synthetic.yml")
+    trainer._merge_shared_options(cfg)
+    step_cfg = train_steps.step_config_from_cfg(cfg)
+    training = copy.deepcopy(cfg["training"])
+    training["optimizer"] = {k: v * DP_LR_SCALE if k.endswith("lr") else v
+                             for k, v in training["optimizer"].items()}
+    h, w = cfg["monodepth_options"]["height"], cfg["monodepth_options"]["width"]
+    batches = [(dict(batch_size=4, h=h, w=w, seed=100 + i),
+                dict(batch_size=4, h=h, w=w, seed=200 + i, with_unlabeled_extras=True))
+               for i in range(steps)]
+    step = dataclasses.replace(step_cfg, debug_images=True, mix_mask=mix_mask)
+    return {"model_cfg": cfg["model"], "n_classes": 19, "seed": cfg["seed"],
+            "training": training, "batches": batches, "tf32": False,
+            "step": dataclasses.asdict(step)}
+
+
+def _dp_check(label, spec, one, ranks, flips):
+    """`spec`'s steps in one process on the whole batch (`one`) against two
+    ranks over gloo on cuda:0 (`ranks`; see phase_data_parallel). With
+    `flips` (the depthcomp mask) the losses over the mixed batch and the
+    flipped pixels are held to their bounds and the statistics and gradients
+    printed; without, all are held."""
+    got = ranks[0]
+    print(f"[{label}] exp-212 at 512x512, global batch 4 + 4, mix_mask "
+          f"{spec['step']['mix_mask']}, steps {len(spec['batches'])} (optimizer rates x "
+          f"{DP_LR_SCALE:g}), TF32 off")
+    for i, (a, b) in enumerate(zip(one["losses"], got["losses"])):
+        for k in a:
+            rtol = DP_FLIP_RTOL if flips and k in DP_FLIP_KEYS else STEP_RTOL
+            print(f"[{label}] step {i + 1} {k}: one process {a[k]:.7f}, 2 ranks {b[k]:.7f} "
+                  f"(rtol {rtol:g})")
+            if not (math.isfinite(b[k]) and abs(a[k] - b[k]) <= rtol * abs(a[k]) + 1e-7):
+                raise AssertionError(f"{label}: step {i + 1} {k}: {b[k]} vs {a[k]}")
+        if "debug/depths" in one["debug"][i]:
+            depths = float((one["debug"][i]["debug/depths"]
+                            - got["debug"][i]["debug/depths"]).abs().max())
+            print(f"[{label}] step {i + 1} the mask's min-max normalized depths: max |2 ranks "
+                  f"- one process| {depths:.3e}")
+        for k in ("debug/mix_mask", "debug/pseudo_label"):
+            share = float((one["debug"][i][k] != got["debug"][i][k]).float().mean())
+            print(f"[{label}] step {i + 1} {k}: {share:.2e} of the pixels differ"
+                  + (f" (at most {DP_FLIP_SHARE:g})" if flips else ""))
+            if flips and not share <= DP_FLIP_SHARE:
+                raise AssertionError(f"{label}: step {i + 1} {k} differs at {share}")
+    params = list(one["teacher"])  # every parameter's name
+    for what, a, b in (("parameter", one["state"], got["state"]),
+                       ("EMA parameter", one["teacher"], got["teacher"])):
+        diff = max(float((b[k] - a[k]).abs().max()) for k in params)
+        print(f"[{label}] max |{what} 2 ranks - one process| after step "
+              f"{len(spec['batches'])}: {diff:.3e} (at most {DP_PARAM_ATOL:g})")
+        if not diff <= DP_PARAM_ATOL:
+            raise AssertionError(f"{label}: {what}s differ by {diff}")
+    stats = max(float(((got["bn_stats"][k] - v).abs() / (v.abs() + 1)).max())
+                for k, v in one["bn_stats"].items())
+    same = all(torch.equal(ranks[1]["bn_stats"][k], v) for k, v in got["bn_stats"].items())
+    print(f"[{label}] BatchNorm running statistics ({len(one['bn_stats'])} tensors): max "
+          f"|2 ranks - one process| / (1 + |one process|) {stats:.3e}"
+          + ("" if flips else f" (at most {STEP_RTOL:g})") + f"; the ranks' equal: {same}")
+    if not same or not (flips or stats <= STEP_RTOL):
+        raise AssertionError(f"{label}: running statistics {stats}, ranks equal {same}")
+    # the last step's gradients: DDP's average of the ranks' backward of the
+    # global loss against one process's gradient of it. A factor W or 1/W
+    # (the all-reduce's backward and DDP's mean not cancelling) moves their
+    # norm ratio by 50% or more. Most of the difference is the encoder's
+    # first convolution (on the H100, PERF.md): its weight gradient is a small sum
+    # of large terms over every pixel, which cuDNN accumulates in f32 in
+    # another order at 2 rows than at 4, and under `flips` the mixed pixels
+    # that flipped enter it directly; so the ratio is held without flips.
+    names = sorted(one["grads"])
+    g1 = torch.cat([one["grads"][k].flatten() for k in names]).double()
+    g2 = torch.cat([got["grads"][k].flatten() for k in names]).double()
+    rel = float((g2 - g1).norm() / g1.norm())
+    ratio = float(g2.norm() / g1.norm())
+    worst = sorted(((float((got["grads"][k] - one["grads"][k]).double().norm() / g1.norm()), k)
+                    for k in names), reverse=True)[:3]
+    print(f"[{label}] last step's gradients: |2 ranks - one process| / |one process| "
+          f"{rel:.3e} (most in " + ", ".join(f"{k} {v:.1e}" for v, k in worst) + "), norm "
+          f"ratio {ratio:.6f}" + ("" if flips else f" (within {DP_GRAD_NORM_RTOL:g} of 1)"))
+    if not (flips or abs(ratio - 1) <= DP_GRAD_NORM_RTOL):
+        raise AssertionError(f"{label}: gradient norms {ratio} apart")
+    for r, res in enumerate(ranks):
+        print(f"[{label}] rank {r} launches per step {res['launches']} (one process "
+              f"{one['launches']})")
+        if any(c != EXP212_PER_STEP for c in res["launches"] + one["launches"]):
+            raise AssertionError(f"{label}: launches {res['launches']}, {one['launches']}")
+
+
+def phase_data_parallel():
+    """Data-parallel training (`parallel/`) on the card: (a) one process on
+    the whole batch against two ranks over gloo, both on cuda:0, from the
+    same weights, batches and draws: 2 steps of exp-212 with the mix mask
+    held at one, then 1 step with its depthcomp mask (see DP_FLIP_KEYS):
+    every loss, the largest parameter and EMA-parameter difference, the
+    BatchNorm running statistics, the last step's gradients and each rank's
+    launches per step; (b) world size 1 over NCCL: the student wrapped in
+    DDP against the plain path, in turns (losses, step median, device time,
+    peak memory); (c) the two ranks' step time. Returns the two ranks'
+    launches over (a)."""
+    label = "data_parallel"
+    specs = {"a": (_dp_spec(mix_mask=None), False), "a depthcomp": (_dp_spec(steps=1), True)}
+    t0 = time.perf_counter()
+    ones = [compare.run_steps("cuda:0", spec) for spec, _ in specs.values()]
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = launch.launch(compare.run_all, ([("run_steps", (spec,)) for spec, _ in
+                                             specs.values()],),
+                          world=2, devices=["cuda:0"] * 2, backend="gloo")
+    t2 = time.perf_counter()
+    print(f"[{label} a] one process {t1 - t0:.1f} s, 2 ranks over gloo on cuda:0 "
+          f"{t2 - t1:.1f} s with the ranks' start and results")
+    for i, (name, (spec, flips)) in enumerate(specs.items()):
+        _dp_check(f"{label} {name}", spec, ones[i], [r[i] for r in ranks], flips)
+    seconds = [sum((r[i]["seconds"] for i in range(len(specs))), []) for r in ranks]
+    rank_launches = [sum((r[i]["launches"] for i in range(len(specs))), []) for r in ranks]
+    del ones, ranks
+    # TF32 on, the main path's setting
+    spec = dict(_dp_spec(), tf32=True)
+
+    # (b) the distributed path at world size 1 over NCCL, in turns with the plain one
+    over = launch.launch(compare.ddp_overhead, (spec, 2), world=1, devices=["cuda:0"],
+                         backend="nccl")[0]
+    plain, ddp = over["losses"]["plain"], over["losses"]["ddp"]
+    for k in plain:
+        print(f"[{label} b] world size 1 over NCCL, first step {k}: plain {plain[k]:.7f}, "
+              f"DDP {ddp[k]:.7f}")
+        if not abs(plain[k] - ddp[k]) <= DP_OVERHEAD_RTOL * abs(plain[k]) + 1e-7:
+            raise AssertionError(f"{label}: DDP at world size 1 {k} {ddp[k]} vs {plain[k]}")
+    for t in over["turns"]:
+        print(f"[{label} b] {t['side']}: step median {t['median_s'] * 1e3:.2f} ms, device "
+              f"{t['device_ms']:.2f} ms per step, idle {t['idle']:.3f}, the step's peak above "
+              f"what was allocated before it {t['peak_bytes'] / 2**30:.3f} GiB")
+
+    print(f"[{label} b] (TF32 on; device time sums every stream's kernels, NCCL's included, "
+          "which overlap the step's)")
+
+    # (c) the two ranks' step time, from (a)
+    for r, secs in enumerate(seconds):
+        print(f"[{label} c] two ranks sharing one card over gloo, not a multi-GPU speed: rank "
+              f"{r} step times " + ", ".join(f"{x:.3f} s" for x in secs))
+    return {f"data_parallel_rank{r}": {k: sum(c[k] for c in per_step) for k in EXP212_PER_STEP}
+            for r, per_step in enumerate(rank_launches)}
+
+
 def main():
     t0 = time.perf_counter()
     card = phase_device()
@@ -2395,6 +2585,7 @@ def main():
         launches.update(phase_exp211())
         launches.update(phase_experiments())
         launches.update(phase_options())
+        launches.update(phase_data_parallel())
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
     main_path = launches["exp212_pad_online_cityscapes"]

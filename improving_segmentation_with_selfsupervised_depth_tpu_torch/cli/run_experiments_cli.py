@@ -1,8 +1,9 @@
 """Experiment runner of the port (the JAX package's
 cli/run_experiments_cli.py; reference run_experiments.py:15-105): expand the
 generated variant grid, write one YAML per trial and dispatch the trials in
-turn to `train_main`, or to `label_selection_main` for `main:
-label_selection`, catching a trial's failure and going on.
+turn to `train_main` (on every visible GPU under the JAX package's rule:
+`parallel/launch.py`), or to `label_selection_main` for `main:
+label_selection` (one process), catching a trial's failure and going on.
 
     python -m improving_segmentation_with_selfsupervised_depth_tpu_torch.cli.run_experiments_cli \
         --config configs/cityscapes_joint.yml --exp 212 [--run 0] [--dry] \
@@ -24,8 +25,8 @@ import yaml
 from ..config.experiments import generate_experiment_cfgs
 from ..config.grid import expand_grid
 from ..config.machine import machine_paths
-from ..engine.trainer import train_main
 from ..label_selection import label_selection_main
+from ..parallel.launch import train_main
 
 
 def run_experiments(base_cfg, exp_id, machine="ws", runs="all", dry=False,

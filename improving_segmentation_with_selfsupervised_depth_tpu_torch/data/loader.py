@@ -11,6 +11,17 @@ caching host allocator, so `to_device_batch` copies them with
 `non_blocking=True`; that allocator does not hand a freed block out again
 before the copies recorded on it have completed, so a pinned buffer is not
 reused while a copy from it is in flight.
+
+Over more than one rank (`parallel/dist.py`) every rank draws the same
+shuffle and loads only its contiguous rows of each global batch, as the JAX
+package's multi-host path feeds each host its rows (JAX
+`parallel/mesh.py:25-43`). A batch that does not split over the ranks (a
+validation set's last, or a batch size the world does not divide) is first
+padded to the next multiple of the world size by repeating its last item,
+with the padded rows' labels set to ignore (250), as the JAX trainer pads
+validation batches for its mesh (JAX `engine/trainer.py:73-90, 417-423`);
+such a batch carries `n_real`, the count of its real rows in the global
+batch.
 """
 
 from __future__ import annotations
@@ -23,7 +34,9 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-HOST_ONLY_KEYS = ("filename",)
+from ..parallel import dist
+
+HOST_ONLY_KEYS = ("filename", "n_real")
 PREFETCH = 2  # batches the producer stacks ahead of the consumer
 
 
@@ -77,7 +90,12 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 4, seed: int = 0,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, shard: Optional[Tuple[int, int]] = None):
+        """`shard` is (rank, world); by default the process group's."""
+        self.rank, self.world = shard if shard is not None else (dist.rank(), dist.world())
+        if drop_last and batch_size % self.world:
+            raise ValueError(f"a train batch of {batch_size} does not split over "
+                             f"{self.world} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -100,11 +118,30 @@ class DataLoader:
         for b in range(len(self)):
             yield idx[b * self.batch_size: (b + 1) * self.batch_size]
 
+    def rows(self, indices) -> Tuple[np.ndarray, Optional[int]]:
+        """This rank's rows of the global batch `indices` (padded first where
+        it does not split over the ranks) and the count of the global batch's
+        real rows where it was padded (else None)."""
+        n = len(indices)
+        m = -(-n // self.world) * self.world
+        n_real = None
+        if m > n:
+            indices = np.concatenate([indices, np.repeat(indices[-1:], m - n)])
+            n_real = n
+        k = m // self.world
+        return indices[self.rank * k:(self.rank + 1) * k], n_real
+
     def _load_batch(self, indices) -> Dict[str, Any]:
         if self._pool is None:
             self._pool = ThreadPoolExecutor(max_workers=self.num_workers)
-        items = list(self._pool.map(self.dataset.__getitem__, indices))
-        return collate(items, self.pin_memory)
+        rows, n_real = self.rows(indices)
+        batch = collate(list(self._pool.map(self.dataset.__getitem__, rows)), self.pin_memory)
+        if n_real is not None:
+            real = min(max(n_real - self.rank * len(rows), 0), len(rows))
+            if "lbl" in batch:
+                batch["lbl"][real:] = 250
+            batch["n_real"] = n_real
+        return batch
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)

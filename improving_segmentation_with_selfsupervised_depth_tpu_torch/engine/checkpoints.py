@@ -49,6 +49,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..parallel import dist
 from . import optim
 from .interop import state_dict_from_jax
 
@@ -246,7 +247,11 @@ class ResumeWriter:
     first joins the previous one, so files land in order and one host
     snapshot at most waits for its write. `snapshot_seconds` and
     `write_seconds` are the last save's copy to the host (the part the
-    caller waits for) and its file writes (on the thread when asynchronous)."""
+    caller waits for) and its file writes (on the thread when asynchronous).
+    Over more than one rank (`parallel/dist.py`) rank 0 alone writes, from
+    the unwrapped student (the keys of one process's checkpoint), and
+    `wait_for_saves` ends at a barrier, so that every rank then finds the
+    files in place."""
 
     def __init__(self):
         self._pending: Optional[threading.Thread] = None
@@ -260,6 +265,7 @@ class ResumeWriter:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise RuntimeError("async checkpoint write failed") from err
@@ -273,8 +279,10 @@ class ResumeWriter:
         host snapshot (JAX `save_resume`, once per file with the same state);
         `step` is the optimizer's step count. Returns the paths."""
         self.wait_for_saves()
-        os.makedirs(ckpt_dir, exist_ok=True)
         paths = [os.path.join(ckpt_dir, b + ".pth") for b in basenames]
+        if not dist.is_main():
+            return paths
+        os.makedirs(ckpt_dir, exist_ok=True)
         t0 = time.perf_counter()
         payload = {"step": optimizer.step_count, "model": model.state_dict(),
                    "optimizer": optimizer.state_dict()}

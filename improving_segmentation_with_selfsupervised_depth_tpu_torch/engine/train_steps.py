@@ -56,6 +56,20 @@ photometric loss through K1 and K2 (`fused_pred`) or, without a pose
 network, the pose-free depth forward, the pseudo-depth loss with a depth
 teacher, and the depth metrics.
 
+Over more than one rank (`parallel/dist.py`; the JAX package's data mesh)
+`model` is the student wrapped in `DistributedDataParallel` and each rank
+holds its contiguous rows of the global batch: every batch mean of the step
+is a mean over the global batch, train-mode BatchNorm normalizes with the
+global batch's statistics, the DepthMix partner of a rank's last sample is
+the next rank's first, and every draw with a batch axis is one draw over
+the global batch, of which the rank keeps its rows. Injected draws
+(`tie_break_noise`, `StepDraws`) are global-shaped; the fused pass's
+(2N, ...) draw is the labeled global batch over the unlabeled one, of which a
+rank keeps its labeled rows and its unlabeled rows. So W ranks compute the
+losses, gradients and statistics of one process on the global batch; the
+losses come back as those global values, equal on every rank. The EMA
+teacher is updated from the unwrapped student.
+
 Losses come back as 0-dim tensors, so the step itself never waits for the
 device; with `debug_images` the semi-supervised step also returns its mixed
 images (N, 3, H, W), mix mask and pseudo-label (N, H, W) and the mask's
@@ -67,9 +81,11 @@ not injected is drawn from the step's `torch.Generator`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Sequence, Tuple
+import weakref
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 from torch.utils.checkpoint import checkpoint
 
 from ..ops import photometric
@@ -85,6 +101,7 @@ from ..ops.mixing import (
 )
 from ..ops.photometric import key_of
 from ..ops.resize import resize_bilinear
+from ..parallel import dist
 from .state import ema_model_names, update_ema
 from .trainer_depth_eval import eval_depth_metrics
 
@@ -220,7 +237,7 @@ def _feat_dist(outputs) -> torch.Tensor:
     """The L2 distance of the backbone's last feature from the ImageNet
     encoder's, in f32 (JAX train_steps.py:331-335)."""
     d = outputs["encoder_features"].float() - outputs["imnet_features"].float()
-    return torch.sqrt(torch.sum(d * d))
+    return torch.sqrt(dist.global_sum(torch.sum(d * d)))
 
 
 def _pseudo_depth_loss(cfg: StepConfig, disp0: torch.Tensor, pseudo_depth: torch.Tensor):
@@ -250,7 +267,7 @@ def pseudo_label_loss(cfg: StepConfig, teacher_softmax: torch.Tensor,
     """
     max_probs = teacher_softmax.amax(1)
     pseudo_label = torch.where(max_probs == 0, IGNORE_INDEX, teacher_softmax.argmax(1))
-    unlabeled_weight = (max_probs >= 0.968).float().mean()
+    unlabeled_weight = dist.batch_mean((max_probs >= 0.968).float())
     pixel_weights = unlabeled_weight * torch.ones_like(max_probs)
     loss = cfg.consistency_weight * cross_entropy2d(student_logits, pseudo_label,
                                                     pixel_weights=pixel_weights)
@@ -269,7 +286,8 @@ def generate_mix_mask(cfg: StepConfig, argmax_u_w: torch.Tensor, depths,
     if cfg.mix_mask == "depth":
         thr = draws.mix_threshold
         if thr is None:
-            thr = uniform(generator, depths.device, (n, 1, 1), lo=0.1, hi=0.4)
+            thr = dist.rank_draw(lambda shape: uniform(generator, depths.device, shape,
+                                                       lo=0.1, hi=0.4), (n, 1, 1))
         return generate_depth_mask(depths, torch.as_tensor(thr, device=depths.device))
     if cfg.mix_mask == "class":
         return generate_class_mask(argmax_u_w, cfg.num_classes, IGNORE_INDEX,
@@ -300,6 +318,69 @@ def strong_transform(cfg: StepConfig, mask, data, draws: StepDraws, generator=No
     return data
 
 
+def _rank_draws(draws: StepDraws) -> StepDraws:
+    """The injected draws with a batch axis cut to this rank's rows."""
+    if dist.world() == 1:
+        return draws
+    per_sample = {}
+    for name in ("tie_break_noise_u", "class_scores", "depthhist_u", "mix_threshold"):
+        v = getattr(draws, name)
+        if isinstance(v, torch.Tensor) and v.dim() > 0:
+            per_sample[name] = dist.rank_rows(v)
+    return dataclasses.replace(draws, **per_sample)
+
+
+def _fused_noise(cfg: StepConfig, comb: Dict[str, torch.Tensor],
+                 noise: Optional[torch.Tensor], generator) -> Optional[torch.Tensor]:
+    """The fused photometric pass's tie-break noise for this rank's 2N
+    batch (labeled rows, then unlabeled rows): the rows of the global
+    (labeled, then unlabeled) draw that belong to them. In one process the
+    draw is the pass's own (None: drawn where the pass draws it)."""
+    if dist.world() == 1 or cfg.disable_automasking:
+        return noise
+    if noise is None:
+        n2, _, h, w = comb[key_of("color", 0, 0)].shape
+        f = 1 if cfg.avg_reprojection else len(cfg.frame_ids) - 1
+        device = comb[key_of("color", 0, 0)].device
+        noise = torch.randn((n2 * dist.world(), f, h, w), generator=generator, device=device)
+    half = noise.shape[0] // 2
+    return torch.cat([dist.rank_rows(noise[:half]), dist.rank_rows(noise[half:])])
+
+
+# per DDP-wrapped student, the trainable parameters its loss never reaches
+_UNREACHED: "weakref.WeakKeyDictionary[torch.nn.Module, List[torch.nn.Parameter]]" = (
+    weakref.WeakKeyDictionary())
+
+
+def _unreached(params, loss: torch.Tensor) -> List[torch.nn.Parameter]:
+    """The parameters of `params` that `loss`'s autograd graph does not
+    reach."""
+    reached, seen, stack = set(), set(), [loss.grad_fn]
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        if hasattr(fn, "variable"):  # AccumulateGrad: a leaf
+            reached.add(id(fn.variable))
+        stack.extend(f for f, _ in fn.next_functions)
+    return [p for p in params if id(p) not in reached]
+
+
+def _reach_all(model: DistributedDataParallel, total: torch.Tensor) -> torch.Tensor:
+    """`total` plus 0 times each trainable parameter the step leaves
+    unused (found at the first step: the set is the configuration's), so
+    that DDP, which runs the student several times before one backward,
+    sees a gradient of every parameter; a zero gradient is what the
+    optimizer takes for a missing one."""
+    if model not in _UNREACHED:
+        params = [p for p in model.module.parameters() if p.requires_grad]
+        _UNREACHED[model] = _unreached(params, total)
+    for p in _UNREACHED[model]:
+        total = total + 0.0 * p.sum()
+    return total
+
+
 def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor],
                cfg: StepConfig, generator: Optional[torch.Generator] = None,
                tie_break_noise: Optional[torch.Tensor] = None, *,
@@ -313,8 +394,12 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
     semi-supervised branch, on with `cfg.unlabeled` and `cfg.use_ema`, needs
     `unlabeled_batch` and `teacher` and takes its draws from `draws`.
     `cfg.unlabeled` without `cfg.use_ema` is the supervised step, the
-    unlabeled batch unused, as in the JAX package.
+    unlabeled batch unused, as in the JAX package. Over more than one rank
+    `model` is the DDP-wrapped student (the module docstring).
     """
+    student = model.module if isinstance(model, DistributedDataParallel) else model
+    tie_break_noise = None if tie_break_noise is None else dist.rank_rows(tie_break_noise)
+    draws = _rank_draws(draws)
     semi = cfg.unlabeled and cfg.use_ema
     if semi and (unlabeled_batch is None or teacher is None):
         raise ValueError("the semi-supervised step needs unlabeled_batch and teacher")
@@ -364,8 +449,9 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
         comb = _concat_batches(batch, unlabeled_batch)
         outputs = model(comb)
         # each per-scale loss is a batch mean: the 2N loss stands for each half's
-        mono_loss = mono_loss_u = _monodepth_loss(cfg, comb, outputs, generator,
-                                                  draws.tie_break_noise_fused)
+        mono_loss = mono_loss_u = _monodepth_loss(
+            cfg, comb, outputs, generator,
+            _fused_noise(cfg, comb, draws.tie_break_noise_fused, generator))
         outputs, out_1 = _split_outputs(outputs, n_lab)
     elif fused_mixed:
         mixed_batch = dict(unlabeled_batch)
@@ -435,11 +521,13 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
     total = seg_total + mono_total + pseudo_depth_loss
 
     optimizer.zero_grad()
+    if student is not model:
+        total = _reach_all(model, total)
     total.backward()
     step = optimizer.step_count  # steps taken before this one (the JAX state.step)
     optimizer.step()
     if cfg.use_ema:
-        update_ema(teacher, model, step, EMA_ALPHA, cfg.ema_names)
+        update_ema(teacher, student, step, EMA_ALPHA, cfg.ema_names)
     metrics.update({"segmentation_loss": seg_loss.detach(), "mono_loss": mono_loss.detach(),
                     "pseudo_depth_loss": pseudo_depth_loss.detach(),
                     "feat_dist_loss": feat_dist_loss.detach(),
@@ -459,9 +547,13 @@ def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor], cfg: StepC
     depth, `depth/*` (`engine/trainer_depth_eval.py`); the batch's (C, C)
     int64 confusion matrix; `pred` (N, H, W) and `disp_0`. With a pose
     network the photometric loss runs K1 and the fused K2 error on CUDA
-    tensors; its tie-break noise is `tie_break_noise` or drawn from
-    `generator`, as in `ops/photometric.py::compute_losses`.
+    tensors; its tie-break noise is `tie_break_noise` (global-shaped) or
+    drawn from `generator`, as in `ops/photometric.py::compute_losses`. Over
+    more than one rank the losses, the depth metrics and the confusion
+    matrix are the global batch's; `pred` and `disp_0` are this rank's rows.
     """
+    if tie_break_noise is not None:
+        tie_break_noise = dist.rank_rows(tie_break_noise)
     model.eval()
     outputs = model(batch)
     zero = torch.zeros((), device=batch[key_of("color_aug", 0, 0)].device)
@@ -477,7 +569,7 @@ def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor], cfg: StepC
         metrics["segmentation_loss"] = cross_entropy2d(semantics, labels)
         semantics = resize_bilinear(semantics, labels.shape[1:], align_corners=True)
         pred = semantics.argmax(1)
-        conf = confusion_matrix(labels, pred, cfg.num_classes)
+        conf = dist.global_sum(confusion_matrix(labels, pred, cfg.num_classes))
         aux["pred"] = pred
 
     metrics["monodepth_loss"] = zero

@@ -33,6 +33,18 @@ the loaders read (`engine/depth_estimator.py`).
 `training.save_separate_monodepth_models` exports the SDE components after
 the last step (the EMA teacher's parameters with `save_monodepth_ema`).
 With `training.amp` the model computes in bf16 (`models/joint.py`).
+Over more than one rank (`parallel/`: `parallel/launch.py` spawns one
+process per GPU under the JAX package's rule, or torchrun starts them) every
+rank builds the same run from the same seed and loads its rows of each
+global batch; the student is wrapped in `DistributedDataParallel`
+(`broadcast_buffers=False`: the cross-replica BatchNorm keeps every rank's
+running statistics equal), and the step computes the global batch's losses
+(`engine/train_steps.py`). Rank 0 alone writes the offline pseudo-depth
+(the others wait), the logs, metrics, images and checkpoints; every rank
+loads a checkpoint. Validation pads a batch that does not split over the
+ranks as the JAX trainer does, leaves the padded rows out of its means and
+gathers the logged images, so that every rank sees the global scores and
+takes the loop's decisions (best checkpoint, plateau, early stopping) alike.
 What the port does not run yet raises NotImplementedError naming its
 ROADMAP item; `training.disable_depth_estimator` is read by nothing, as in
 the JAX package.
@@ -44,12 +56,14 @@ import dataclasses
 import importlib.util
 import logging
 import os
+import random
 import time
 from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 import yaml
+from torch.nn.parallel import DistributedDataParallel
 
 from ..config.loader import merge_monodepth_options
 from ..config.machine import expand_cfg_vars, machine_paths
@@ -57,6 +71,7 @@ from ..data.loader import DataLoader, infinite_iterator, to_device_batch
 from ..data.registry import build_loader
 from ..models.joint import build_model
 from ..ops.metrics import AverageMeterDict, RunningScore
+from ..parallel import dist
 from ..utils.misc import get_logger, set_seeds
 from .checkpoints import ResumeWriter, apply_pretraining, load_resume, save_monodepth_models
 from .depth_estimator import DepthEstimator
@@ -64,7 +79,7 @@ from .early_stopping import EarlyStopping
 from .optim import build_optimizer
 from .state import make_teacher
 from .train_steps import eval_step, step_config_from_cfg, train_step
-from .writer import MetricsWriter
+from .writer import MetricsWriter, NullWriter
 
 logger = logging.getLogger("segsde_torch")
 
@@ -106,7 +121,9 @@ class Run:
     """What a training run holds: its config, the model (and EMA teacher) on
     the device, the optimizer, the step config and the step's generator, the
     loaders, the run's files (log path, metrics writer, checkpoint writer),
-    the plateau and early-stopping state and the validation scores."""
+    the plateau and early-stopping state and the validation scores. Over
+    more than one rank `ddp` is the student wrapped for the train step;
+    `model` is the student itself."""
 
     cfg: Dict[str, Any]
     model: torch.nn.Module
@@ -130,11 +147,14 @@ class Run:
     run_id: str = "run"
     mIoU: float = 0.0
     fwAcc: float = 0.0
+    # the last validation's confusion matrix, summed over its batches
+    val_confusion: Optional[np.ndarray] = None
     best_iou: float = -100.0
     start_iter: int = 0
     unlabeled_iter: Optional[Iterator] = None
     _extra_iter: Optional[Iterator] = None
     _said_no_matplotlib: bool = False
+    ddp: Optional[torch.nn.Module] = None
 
     def __post_init__(self):
         if self.unlabeled_loader is not None:
@@ -163,7 +183,8 @@ class Run:
             yield self.to_device(host)
 
     def step(self, batch, unlabeled_batch) -> Dict[str, torch.Tensor]:
-        return train_step(self.model, self.optimizer, batch, self.step_cfg,
+        model = self.ddp if self.ddp is not None else self.model
+        return train_step(model, self.optimizer, batch, self.step_cfg,
                           generator=self.generator, unlabeled_batch=unlabeled_batch,
                           teacher=self.teacher)
 
@@ -177,7 +198,8 @@ class Run:
         with segmentation `Mean IoU` and `fwAcc` of the summed confusion
         matrix; `eval_seconds_per_batch` is the host time from an eval
         step's start to its metrics on the host, which waits for the device,
-        averaged over the batches.
+        averaged over the batches. Over more than one rank these are the
+        global batches' (the module docstring).
         """
         training = self.cfg["training"]
         meter = AverageMeterDict()
@@ -189,21 +211,21 @@ class Run:
         for host in self.val_loader:
             batch = self.to_device(host)
             t0 = time.perf_counter()
-            metrics, conf, aux = eval_step(self.model, batch, self.step_cfg, generator=generator)
+            with dist.real_rows(host.get("n_real")):
+                metrics, conf, aux = eval_step(self.model, batch, self.step_cfg,
+                                               generator=generator)
             meter.update({k: float(v) for k, v in metrics.items()})
             running.update_matrix(conf)
             seconds.append(time.perf_counter() - t0)
             if len(imgs_to_save) < n_imgs:
-                imgs = _host(host["color_aug_0_0"])
-                gts = _host(host["lbl"]) if "lbl" in host else None
-                preds = _host(aux["pred"]) if "pred" in aux else None
-                disps = _host(aux["disp_0"].float()) if "disp_0" in aux else None
+                imgs, gts, preds, disps = _logged_rows(host, batch, aux)
                 for j in range(imgs.shape[0]):
                     if len(imgs_to_save) >= n_imgs:
                         break
                     imgs_to_save.append(tuple(None if a is None else a[j]
                                               for a in (imgs, gts, preds, disps)))
         self._log_val_images(imgs_to_save, step)
+        self.val_confusion = running.mat
         record = dict(meter.avgs)
         for k, v in meter.avgs.items():
             self.writer.add_scalar("validation/" + k, v, step + 1)
@@ -222,6 +244,8 @@ class Run:
     def _log_val_images(self, imgs_to_save, step: int) -> None:
         """Input / GT / prediction / colorized depth per sample (reference
         train.py:904-923)."""
+        if not dist.is_main():
+            return
         decode = self.val_loader.dataset.decode_segmap_tocolor
         for j, (img, gt, pred, disp) in enumerate(imgs_to_save):
             prefix = f"{self.run_id.replace('/', '_')}/{j}"
@@ -345,6 +369,23 @@ class Run:
         self.writer.close()
 
 
+def _logged_rows(host, batch, aux):
+    """A validation batch's images (NHWC), labels, predictions and
+    disparities on the host, None where absent: over more than one rank the
+    global batch's real rows, gathered from the ranks."""
+    if dist.world() == 1:
+        return (_host(host["color_aug_0_0"]), _host(host["lbl"]) if "lbl" in host else None,
+                _host(aux["pred"]) if "pred" in aux else None,
+                _host(aux["disp_0"].float()) if "disp_0" in aux else None)
+
+    def rows(t):
+        return None if t is None else _host(dist.gather_rows(t)[:host.get("n_real")])
+
+    disp = aux.get("disp_0")
+    return (rows(batch["color_aug_0_0"].permute(0, 2, 3, 1)), rows(batch.get("lbl")),
+            rows(aux.get("pred")), rows(None if disp is None else disp.float()))
+
+
 def _merge_shared_options(cfg: Dict[str, Any]) -> None:
     """`merge_monodepth_options`, then the data section's frame ids, scales,
     crop and image size from the monodepth options, in place (JAX
@@ -376,7 +417,10 @@ def _build_loaders(cfg: Dict[str, Any], seed: int, device: str):
          and not u.get("depthmix_online_depth", False))
         or cfg["data"].get("depth_teacher") is not None)
     if need_offline_depth and cfg["data"].get("dataset") != "synthetic":
-        DepthEstimator(cfg, device).prepare_depth_estimates()
+        if dist.is_main():
+            with dist.local_only():
+                DepthEstimator(cfg, device).prepare_depth_estimates()
+        dist.barrier()
     pin_memory = torch.device(device).type == "cuda"
 
     data_cfg = dict(cfg["data"])
@@ -425,7 +469,10 @@ def build_run(cfg: Dict[str, Any], device: str = "cuda:0", run_id: str = "run") 
     place, seeds the host's RNGs and torch, builds the loaders, the model
     with its pretrained weights, the teacher and the optimizer, opens the
     metrics writer in `training.log_path` (default `<LOG_DIR>/<run_id>`) and
-    resumes where `resume` or `auto_resume` says."""
+    resumes where `resume` or `auto_resume` says. Over more than one rank
+    (a process group joined beforehand) it wraps the student in DDP; the
+    ranks but the first reseed python's RNG, which the datasets' augmentation
+    draws from, so that no two ranks crop and flip alike."""
     paths = machine_paths(cfg.get("machine", "ws"))
     expand_cfg_vars(cfg, paths)
     _merge_shared_options(cfg)
@@ -433,6 +480,8 @@ def build_run(cfg: Dict[str, Any], device: str = "cuda:0", run_id: str = "run") 
     seed = cfg.get("seed", training.get("seed", 42))
     set_seeds(seed)
     torch.manual_seed(seed)
+    if dist.rank() > 0:
+        random.seed(f"{seed}/{dist.rank()}")
     log_path = training.get("log_path") or os.path.join(paths["LOG_DIR"], run_id)
     training["log_path"] = log_path
     os.makedirs(log_path, exist_ok=True)
@@ -464,7 +513,9 @@ def build_run(cfg: Dict[str, Any], device: str = "cuda:0", run_id: str = "run") 
               batch_size=training["batch_size"],
               height=cfg["data"].get("crop_h") or img_size[0],
               width=cfg["data"].get("crop_w") or img_size[1],
-              log_path=log_path, writer=MetricsWriter(log_path), checkpoints=ResumeWriter(),
+              log_path=log_path,
+              writer=MetricsWriter(log_path) if dist.is_main() else NullWriter(),
+              checkpoints=ResumeWriter(),
               plateau=plateau,
               early_stopping=EarlyStopping(logger=logger, **es_cfg) if es_cfg else None,
               run_id=run_id)
@@ -473,6 +524,10 @@ def build_run(cfg: Dict[str, Any], device: str = "cuda:0", run_id: str = "run") 
     except Exception:
         run.close()
         raise
+    if dist.world() > 1:
+        on_cuda = torch.device(device).type == "cuda"
+        run.ddp = DistributedDataParallel(model, device_ids=[device] if on_cuda else None,
+                                          broadcast_buffers=False)
     return run
 
 
@@ -557,7 +612,7 @@ def _loop(run: Run, cfg: Dict[str, Any]) -> List[Dict[str, float]]:
                 debug = {k: record.pop(k) for k in list(record) if k.startswith("debug/")}
                 records.append(record)
                 pending.append(record)
-                if debug and (step + 1) % print_interval == 0:
+                if debug and dist.is_main() and (step + 1) % print_interval == 0:
                     run.dump_mix_debug(debug, step)
                 if (step + 1) % print_interval == 0:
                     _write_training_scalars(run, cfg, pending, step)
@@ -621,16 +676,18 @@ def train_main(cfg: Dict[str, Any], device: str = "cuda:0", run: Optional[Run] =
     if own_run:
         run = build_run(cfg, device, run_id)
     training = cfg["training"]
-    with open(os.path.join(run.log_path, "cfg.yml"), "w") as f:
-        yaml.safe_dump(cfg, f)
-    file_logger = get_logger(run.log_path)
-    handler = file_logger.handlers[-1]
+    file_logger = handler = None
+    if dist.is_main():
+        with open(os.path.join(run.log_path, "cfg.yml"), "w") as f:
+            yaml.safe_dump(cfg, f)
+        file_logger = get_logger(run.log_path)
+        handler = file_logger.handlers[-1]
     logger.info("training %s on %s: batch %d at %dx%d, steps %d to %d",
                 cfg["model"].get("backbone_name", "resnet101"), run.device, run.batch_size,
                 run.height, run.width, run.start_iter + 1, training["train_iters"] - 1)
     try:
         records = _loop(run, cfg)
-        if training.get("save_separate_monodepth_models", False):
+        if training.get("save_separate_monodepth_models", False) and dist.is_main():
             # component export for the SDE transfer chain (reference train.py:377-390)
             teacher = run.teacher if training.get("save_monodepth_ema", False) else None
             save_monodepth_models(run.log_path, run.model,
@@ -638,8 +695,9 @@ def train_main(cfg: Dict[str, Any], device: str = "cuda:0", run: Optional[Run] =
                                   params_from=teacher)
             logger.info("SDE components exported to %s", run.log_path)
     finally:
-        file_logger.removeHandler(handler)
-        handler.close()
+        if handler is not None:
+            file_logger.removeHandler(handler)
+            handler.close()
         if own_run:
             run.close()
     return records

@@ -40,3 +40,16 @@ class MetricsWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+class NullWriter:
+    """The metrics sink of a rank other than the first: writes nothing."""
+
+    def add_scalar(self, tag: str, value, step: int):
+        pass
+
+    def add_image(self, tag: str, img: np.ndarray, step: int, dataformats: str = "HWC"):
+        pass
+
+    def close(self):
+        pass

@@ -15,6 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import dist
+
 
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with the JAX package's (Flax) semantics.
@@ -25,6 +27,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     tracked statistics are computed in f32 whatever the input's dtype (Flax
     computes BatchNorm statistics in f32 under a bf16 `dtype`); the output
     keeps the input's dtype.
+
+    Over more than one rank (`parallel/dist.py`) train mode normalizes with
+    the statistics of the global batch, as BatchNorm under the JAX package's
+    data mesh: every rank's per-channel count, mean (summed in f64) and
+    biased variance (f32) are gathered through one autograd-aware
+    all-reduce and combined by Chan's formula in f64, mean = sum(n_r m_r) /
+    n, var = sum(n_r (v_r + (m_r - mean)^2)) / n, so that the backward
+    all-reduces too, as SyncBatchNorm's does. A channel whose mean lies far
+    above its spread (the ASPP pooling branch's, one value per sample) keeps
+    its variance: the f64 means leave no f32 rounding of a mean to cancel
+    against it. The running statistics take the global mean and biased
+    variance, equal on every rank.
     """
 
     # set while `frozen_running_stats` is active: train mode then normalizes
@@ -38,16 +52,37 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        if dist.world() > 1:
+            return self._forward_global(x)
         if not BatchNorm2d._stats_frozen:
-            self._track(x)
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+                self._track(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
-    def _track(self, x: torch.Tensor) -> None:
-        with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
-            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
-            self.num_batches_tracked.add_(1)
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        dims = (0, 2, 3)
+        n = xf.numel() // xf.shape[1]
+        mean = xf.sum(dims, dtype=torch.float64) / n
+        var = torch.var(xf, dim=dims, unbiased=False).double()
+        counts, means, variances = dist.gather_ranks(
+            torch.stack([torch.full_like(mean, n), mean, var])).unbind(1)
+        total = counts.sum(0)
+        g_mean = (counts * means).sum(0) / total
+        g_var = (counts * (variances + (means - g_mean) ** 2)).sum(0) / total
+        g_mean, g_var = g_mean.float(), g_var.float()
+        if not BatchNorm2d._stats_frozen:
+            with torch.no_grad():
+                self._track(g_mean, g_var)
+        scale = (torch.rsqrt(g_var + self.eps) * self.weight)[None, :, None, None]
+        y = (xf - g_mean[None, :, None, None]) * scale + self.bias[None, :, None, None]
+        return y.to(x.dtype)
+
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+        self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
+        self.num_batches_tracked.add_(1)
 
 
 @contextlib.contextmanager
@@ -90,7 +125,9 @@ class ChannelDropout(nn.Dropout2d):
     are scaled by 1 / (1 - p) (JAX `nn.Dropout(broadcast_dims=(1, 2))`).
     The draws come from `generator`, never from the global RNG; left None,
     it is made on the input's device at the first draw, seeded with `seed`
-    (`seed_dropout` gives each module of a model a seed of its own)."""
+    (`seed_dropout` gives each module of a model a seed of its own). Over
+    more than one rank each rank keeps its rows of one draw over the global
+    batch."""
 
     def __init__(self, p: float, seed: int = 0):
         super().__init__(p)
@@ -102,8 +139,23 @@ class ChannelDropout(nn.Dropout2d):
             return x
         if self.generator is None:
             self.generator = torch.Generator(device=x.device).manual_seed(self.seed)
-        keep = torch.rand((*x.shape[:2], 1, 1), generator=self.generator,
-                          device=x.device) >= self.p
+        keep = dist.rank_draw(lambda shape: torch.rand(shape, generator=self.generator,
+                                                       device=x.device),
+                              (*x.shape[:2], 1, 1)) >= self.p
+        return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
+                                                                 device=x.device))
+
+
+class Dropout(nn.Dropout):
+    """`nn.Dropout` whose mask is U(0, 1) >= p from the default generator,
+    drawn over the global batch, of which each rank keeps its rows: every
+    rank seeds the generator alike, so W ranks drop what one process drops
+    on the whole batch (`parallel/dist.py`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0:
+            return x
+        keep = dist.rank_draw(lambda shape: torch.rand(shape, device=x.device), x.shape) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros((), dtype=x.dtype,
                                                                  device=x.device))
 
@@ -154,7 +206,7 @@ class ASPP(nn.Module):
                                        *conv_bn_relu(in_ch, out_ch, 1)))
         self.convs = nn.ModuleList(convs)
         self.project = nn.Sequential(*conv_bn_relu(len(convs) * out_ch, out_ch, 1),
-                                     nn.Dropout(0.5))
+                                     Dropout(0.5))
 
     def forward(self, x):
         branches = [conv(x) for conv in self.convs]

@@ -28,7 +28,7 @@ import torch.nn as nn
 
 from ..ops.resize import resize_bilinear
 from .depth_decoder import DepthDecoder
-from .layers import BatchNorm2d, SelfAttention
+from .layers import BatchNorm2d, Dropout, SelfAttention
 
 _DEFAULT_NUM_CH_DEC = (16, 32, 64, 128, 256)
 
@@ -57,11 +57,11 @@ class JointSegDepthDecoder(nn.Module):
                 layer_out_channels, 1, bias=False))
             for layer in self.layers})
         cat_ch = layer_out_channels * len(self.layers)
-        head = [nn.Dropout(layer_dropout) if layer_dropout > 0 else nn.Identity()]
+        head = [Dropout(layer_dropout) if layer_dropout > 0 else nn.Identity()]
         if head_inter:
             head += [nn.Conv2d(cat_ch, head_inter_channels, 3, padding=1, bias=False),
                      BatchNorm2d(head_inter_channels), nn.ReLU(inplace=True),
-                     nn.Dropout(head_dropout)]
+                     Dropout(head_dropout)]
             cat_ch = head_inter_channels
         head.append(nn.Conv2d(cat_ch, num_classes, 1))
         self.head = nn.Sequential(*head)

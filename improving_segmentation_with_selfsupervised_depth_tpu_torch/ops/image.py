@@ -20,6 +20,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from ..parallel import dist
+
 SSIM_C1 = 0.01**2
 SSIM_C2 = 0.03**2
 
@@ -71,7 +73,8 @@ def ssim_nchw(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def smoothness_loss(disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
     """Edge-aware disparity smoothness (scalar); disp (N,1,H,W), img (N,3,H,W).
 
-    Reference models/monodepth_layers.py:208-221.
+    Reference models/monodepth_layers.py:208-221; the means are over the
+    global batch (`parallel/dist.py`).
     """
     grad_disp_x = abs_jax(disp[:, :, :, :-1] - disp[:, :, :, 1:])
     grad_disp_y = abs_jax(disp[:, :, :-1, :] - disp[:, :, 1:, :])
@@ -79,7 +82,7 @@ def smoothness_loss(disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
     grad_img_y = abs_jax(img[:, :, :-1, :] - img[:, :, 1:, :]).mean(1, keepdim=True)
     grad_disp_x = grad_disp_x * torch.exp(-grad_img_x)
     grad_disp_y = grad_disp_y * torch.exp(-grad_img_y)
-    return grad_disp_x.mean() + grad_disp_y.mean()
+    return dist.batch_mean(grad_disp_x) + dist.batch_mean(grad_disp_y)
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,8 @@ loss and the per-pixel entropy of the segmentation.
 
 Port of the JAX package's `ops/losses.py`: `cross_entropy2d` (reference
 loss/loss.py:18-37) without class weights, `berhu` (loss/loss.py:5-15) and
-`pixel_wise_entropy` (loss/loss.py:40-47).
+`pixel_wise_entropy` (loss/loss.py:40-47). Over more than one rank the
+means and the berhu threshold are over the global batch (`parallel/dist.py`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..parallel import dist
 from .image import abs_jax
 from .resize import resize_bilinear
 
@@ -37,9 +39,9 @@ def cross_entropy2d(logits: torch.Tensor, target: torch.Tensor,
     nll = F.cross_entropy(logits.float(), target.long(), ignore_index=ignore_index,
                           reduction="none")
     if pixel_weights is not None:
-        return (pixel_weights.detach() * nll).mean()
-    valid = (target != ignore_index).sum().clamp(min=1)
-    return nll.sum() / valid
+        return dist.batch_mean(pixel_weights.detach() * nll)
+    valid = dist.global_sum((target != ignore_index).sum()).clamp(min=1)
+    return dist.batch_sum(nll) / valid
 
 
 def berhu(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
@@ -51,8 +53,9 @@ def berhu(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
         pred = torch.log1p(pred)
         target = torch.log1p(target)
     absdiff = abs_jax(target - pred) * mask
-    c = torch.clamp_min(0.2 * absdiff.detach().amax(), 1e-12)
-    return torch.where(absdiff <= c, absdiff, (absdiff * absdiff + c * c) / (2.0 * c)).mean()
+    c = torch.clamp_min(0.2 * dist.global_max(absdiff.detach().amax()), 1e-12)
+    return dist.batch_mean(torch.where(absdiff <= c, absdiff,
+                                       (absdiff * absdiff + c * c) / (2.0 * c)))
 
 
 def pixel_wise_entropy(logits: torch.Tensor, normalize: bool = False) -> torch.Tensor:

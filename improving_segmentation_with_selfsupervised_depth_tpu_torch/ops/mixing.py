@@ -6,7 +6,10 @@ mixed with the next one in the batch (roll by 1), and the depthcomp mask
 compares each sample's disparity with that partner's. The ClassMix mask
 selects a random half of the classes present in each (pseudo-)label; the
 depth-histogram thresholds come from a per-sample 100-bin histogram of
-log(1 + depth). Their random draws can be passed in.
+log(1 + depth). Their random draws can be passed in. Over more than one
+rank the partner of a rank's last sample is the next rank's first
+(`parallel/dist.py::roll_next`), and the per-sample draws are this rank's
+rows of one draw over the global batch.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel import dist
 from .image import uniform
 
 
@@ -27,7 +31,7 @@ def mix(mask: torch.Tensor, data: Optional[torch.Tensor] = None,
     """
     def blend(x):
         m = mask[:, None].to(x.dtype)
-        return m * x + (1.0 - m) * torch.roll(x, shifts=-1, dims=0)
+        return m * x + (1.0 - m) * dist.roll_next(x)
 
     return (blend(data) if data is not None else None,
             blend(target) if target is not None else None)
@@ -51,7 +55,7 @@ def generate_depthcomp_mask(disps: torch.Tensor, margin: float, foreground_thres
     drawn once per batch, U(low, high): `threshold_draw` injects it,
     otherwise `generator` draws it.
     """
-    other = torch.roll(disps, shifts=-1, dims=0)
+    other = dist.roll_next(disps)
     fg = (disps >= other - margin).float()
     if isinstance(foreground_threshold, (tuple, list)):
         lo, hi = foreground_threshold
@@ -82,7 +86,8 @@ def generate_class_mask(argmax_label: torch.Tensor, num_classes: int,
     n_present = present.sum(1)
     k = (n_present - n_present % 2) // 2
     if scores is None:
-        scores = uniform(generator, label.device, (n, num_classes))
+        scores = dist.rank_draw(lambda shape: uniform(generator, label.device, shape),
+                                (n, num_classes))
     scores = torch.where(present, scores.to(label.device, torch.float32), float("inf"))
     ranks = torch.argsort(torch.argsort(scores, dim=1, stable=True), dim=1, stable=True)
     selected = ranks < k[:, None]
@@ -126,6 +131,6 @@ def depthhist_thresholds(depth: torch.Tensor, u: Optional[torch.Tensor] = None,
     cdf = torch.cumsum(density, 1) / density.sum(1, keepdim=True)
     min_e = torch.gather(edges, 1, first_index(cdf > 0.4))[:, 0]
     if u is None:
-        u = uniform(generator, depth.device, (n,))
+        u = dist.rank_draw(lambda shape: uniform(generator, depth.device, shape), (n,))
     thr_log = u.to(depth.device, torch.float32) * (max_e - min_e) + min_e
     return torch.expm1(thr_log)

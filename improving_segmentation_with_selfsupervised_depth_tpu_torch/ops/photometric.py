@@ -13,6 +13,10 @@ With `fused_pred` the per-scale pred error is the differentiable fused error
 (`ops/cuda/reprojection.py::ReprojectionError`: K2 forward, K3 backward), one
 launch of each per source frame for all scales, in f32.
 
+Over more than one rank (`parallel/dist.py`) the means are over the global
+batch and the tie-break noise is this rank's rows of one draw over it; the
+per-image mean disparity of the smoothness term stays per image.
+
 Subgradients at ties are JAX's: |u| has slope +1 at 0, the clip 0.5 at an
 exact bound (`ops/image.py`), and the min over sources splits its gradient
 evenly between equal values (`amin`; `min(dim).values` would give it all to
@@ -32,6 +36,7 @@ from typing import Any, Dict, Optional, Sequence
 
 import torch
 
+from ..parallel import dist
 from .cuda.reprojection import reprojection_error, reprojection_error_diff
 from .geometry import backproject_depth, disp_to_depth, project_3d
 from .image import abs_jax, smoothness_loss, ssim_nchw
@@ -107,9 +112,10 @@ def identity_reprojection(inputs: Dict[str, torch.Tensor], *, frame_ids: Sequenc
     ], dim=1)
     if avg_reprojection:
         identity_losses = identity_losses.mean(1, keepdim=True)
-    if tie_break_noise is None:
-        tie_break_noise = torch.randn(identity_losses.shape, generator=generator,
-                                      device=identity_losses.device)
+    if tie_break_noise is None:  # one draw over the global batch (parallel/dist.py)
+        tie_break_noise = dist.rank_draw(
+            lambda shape: torch.randn(shape, generator=generator, device=identity_losses.device),
+            identity_losses.shape)
     return identity_losses + tie_break_noise * 1e-5
 
 
@@ -165,7 +171,7 @@ def compute_losses(inputs: Dict[str, torch.Tensor], outputs: Dict[str, torch.Ten
             reproj = reproj.mean(1, keepdim=True)
         combined = reproj if disable_automasking else torch.cat([identity_losses, reproj], 1)
         to_optimise = combined[:, 0] if combined.shape[1] == 1 else combined.amin(1)
-        loss = to_optimise.mean()
+        loss = dist.batch_mean(to_optimise)
 
         mean_disp = disp.mean((2, 3), keepdim=True)
         norm_disp = disp / (mean_disp + 1e-7)
@@ -197,10 +203,10 @@ def depth_metrics(pred: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor
     abs_rel, sq_rel, rms, log_rms and the shares a1-a3 of pixels whose ratio
     to the truth is below 1.25, 1.25^2 and 1.25^3."""
     mask = mask.float()
-    n = mask.sum().clamp_min(1.0)
+    n = dist.batch_sum(mask).clamp_min(1.0)
 
     def mean(x):
-        return (x * mask).sum() / n
+        return dist.batch_sum(x * mask) / n
 
     thresh = torch.maximum(pred / (gt + 1e-12), gt / (pred + 1e-12))
     return {

@@ -59,7 +59,7 @@ Phases, each reported on its own lines:
      one host snapshot) and the last save's copy to the host and file
      writes, peak memory and the launches per step and per validation
      batch; then, on a larger tree (40 train frames, 20 labeled) whose
-     epochs each hold a window, the time per step in windows of 8 steps
+     epochs each hold a window, the time per step in windows of 4 steps
      between two syncs, in turns: fed by the loaders, from host batches the
      loaders pinned beforehand (the copies and transposes alone, no loader
      thread running) and from the same batches resident on the device, with
@@ -251,12 +251,12 @@ BF16_GRAD_APART = 2.0
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 # f32 operations per (pixel, channel), counted from the kernels' arithmetic
-# (a division counts as one): K1 ~17 per channel plus ~10 per grid pixel for
-# the corner weights; K2 3 products and 40 adds for the five 3x3 window sums
+# (a division counts as one): K1 ~17 per channel plus ~16 per grid pixel for
+# the grid's unnormalization (3 per axis) and the corner weights; K2 3 products and 40 adds for the five 3x3 window sums
 # plus ~33 for SSIM, clip and L1; K3 ~90 per center (window sums, statistics,
 # clip subgradient, five coefficients) plus ~53 per output (five 3x3 box
 # sums, the combination and L1 term)
-K1_OPS_PER_CHANNEL, K1_OPS_PER_PIXEL = 17, 10
+K1_OPS_PER_CHANNEL, K1_OPS_PER_PIXEL = 17, 16
 K2_OPS = 76
 K3_OPS = 143
 
@@ -410,12 +410,25 @@ def _reprojection_inputs(n, reps, h, w, seed):
     return pred, target, g
 
 
+def _k1_errors(img, grids, s):
+    """K1 against its plain version: max |err| of out, dfx, dfy; raises
+    beyond KERNEL_TOL."""
+    got = warp.warp_bilinear_nchw(img, grids, reps=s)
+    ref = warp.warp_bilinear_nchw_plain(img, grids, reps=s)
+    torch.cuda.synchronize()
+    errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+    if not all(math.isfinite(e) and e <= KERNEL_TOL for e in errs):
+        raise AssertionError(f"K1 disagrees with its plain version at {tuple(grids.shape)}: "
+                             f"{errs}")
+    return errs
+
+
 def _time_k1(img, grids, n, s, h, w):
     """K1's times at one shape: the kernel, its plain version, the PyTorch
-    reference (`out` plane only) and the bound."""
-    ix, iy = (t.contiguous() for t in warp.unnormalize_grid(grids, h, w))
-    ms = _time_ms(lambda: warp.warp_bilinear_nchw(img, ix, iy, reps=s))
-    plain_ms = _time_ms(lambda: warp.warp_bilinear_nchw_plain(img, ix, iy, reps=s))
+    reference (`out` plane only) and the bound. The bytes: the image, the
+    grids' 8 bytes a pixel, the three output planes."""
+    ms = _time_ms(lambda: warp.warp_bilinear_nchw(img, grids, reps=s))
+    plain_ms = _time_ms(lambda: warp.warp_bilinear_nchw_plain(img, grids, reps=s))
     img_rep = img.repeat_interleave(s, 0)
     lib_ms = _time_ms(lambda: F.grid_sample(img_rep, grids, mode="bilinear",
                                             padding_mode="border", align_corners=True))
@@ -463,20 +476,14 @@ def phase_kernels():
 
     # K1: one launch per source frame warps the frame at its 4 scale grids;
     # the main path (batch 2, timed), synthetic exp-212 (batch 4, timed), sde
-    # (batch 8) and an odd shape
+    # (batch 8), odd shapes (37x61, a plane of an odd pixel count: the
+    # kernel's scalar path; 50x97) and 21,846 x 3 grids (more than a launch's y)
     for i, (n, s, h, w) in enumerate(((2, 4, 512, 512), (4, 4, 512, 512), (8, 4, 512, 512),
-                                      (2, 2, 37, 61))):
+                                      (2, 2, 37, 61), (1, 4, 50, 97), (21846, 3, 2, 2))):
         img, grids = _warp_inputs(n, s, h, w, seed=n * 1000 + h)
-        ix, iy = warp.unnormalize_grid(grids, h, w)
-        ix, iy = ix.contiguous(), iy.contiguous()
-        got = warp.warp_bilinear_nchw(img, ix, iy, reps=s)
-        ref = warp.warp_bilinear_nchw_plain(img, ix, iy, reps=s)
-        torch.cuda.synchronize()
-        errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+        errs = _k1_errors(img, grids, s)
         print(f"[kernels] K1 warp img {(n, 3, h, w)} S={s}: max|err| out/dfx/dfy = "
               f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tolerance {KERNEL_TOL:.0e})")
-        if not all(math.isfinite(e) and e <= KERNEL_TOL for e in errs):
-            raise AssertionError(f"K1 disagrees with its plain version: {errs}")
         if i > 0:
             records["warp"]["max_abs_err"] = max(records["warp"]["max_abs_err"], *errs)
         if i > 1:
@@ -486,26 +493,32 @@ def phase_kernels():
               f"{(n, 3, h, w)} S={s}: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
               f"ms, F.grid_sample (out plane only, partial) {rec['library_ms']:.4f} ms, bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
-        if i == 1:
-            records["warp"][b4] = rec
-            continue
-        records["warp"] = {"max_abs_err": max(errs), **rec,
-                           "library_call": "F.grid_sample bilinear border, out plane only"}
-        # the device alone (no host work), K1 and F.grid_sample by the same
-        # profiler method, on these grids and on smooth ones
+        if i == 0:
+            records["warp"] = into = {
+                "max_abs_err": max(errs), **rec,
+                "library_call": "F.grid_sample bilinear border, out plane only"}
+        else:
+            records["warp"][b4] = into = rec
+        # the device alone (no host work), K1 (uncounted) and F.grid_sample
+        # by the same profiler method, on these grids and on smooth ones
         for suffix, smooth in (("", False), ("_smooth", True)):
             img_d, grids_d = (img, grids) if not smooth else _warp_inputs(n, s, h, w, 5, True)
-            ix_d, iy_d = (t.contiguous() for t in warp.unnormalize_grid(grids_d, h, w))
-            img_d_rep = img_d.repeat_interleave(s, 0)
-            dev = _device_ms(lambda: warp.warp_bilinear_nchw(img_d, ix_d, iy_d, reps=s))
-            lib_dev = _device_ms(lambda: F.grid_sample(
-                img_d_rep, grids_d, mode="bilinear", padding_mode="border", align_corners=True))
-            for what, (d_ms, count, names) in (("K1", dev), ("F.grid_sample", lib_dev)):
-                print(f"[kernels] {what} device time per call, "
-                      f"{'smooth' if smooth else 'per-pixel random'} disparity: {d_ms:.4f} ms "
-                      f"({count:g} kernels per call: {names})")
-            records["warp"].update({"device_ms" + suffix: dev[0],
-                                    "library_device_ms" + suffix: lib_dev[0]})
+            kind = "smooth" if smooth else "per-pixel random"
+            if smooth:
+                errs = _k1_errors(img_d, grids_d, s)
+                records["warp"]["max_abs_err"] = max(records["warp"]["max_abs_err"], *errs)
+            d_ms, count, names = _device_ms(lambda: warp._launch(img_d, grids_d, s))
+            print(f"[kernels] K1 at {(n, 3, h, w)} S={s}, {kind} disparity: max|err| "
+                  f"{max(errs):.3e}; device time per call {d_ms:.4f} ms, "
+                  f"{rec['bound_ms'] / d_ms:.1%} of its bound ({count:g} kernels per call: "
+                  f"{names})")
+            into["device_ms" + suffix] = d_ms
+            img_rep = img_d.repeat_interleave(s, 0)
+            d_ms, count, names = _device_ms(lambda: F.grid_sample(
+                img_rep, grids_d, mode="bilinear", padding_mode="border", align_corners=True))
+            print(f"[kernels] F.grid_sample at {(n, 3, h, w)} S={s}, device time per call, "
+                  f"{kind} disparity: {d_ms:.4f} ms ({count:g} kernels per call: {names})")
+            into["library_device_ms" + suffix] = d_ms
 
     # K2 and K3: the per-scale pred error of one exp-212 source frame, its 4
     # scales against one target (reps 4), and the identity error (reps 1),
@@ -1261,7 +1274,7 @@ def _window(run, k, source, resident=False):
     return (time.perf_counter() - t0) / k, waited / k, copied / k
 
 
-def _data_path_windows(label, run, k=8):
+def _data_path_windows(label, run, k=4):
     """The data path's cost, in windows of `k` steps between two syncs taken
     in turns: fed by the loaders (each window inside one epoch of both
     loaders, after one step that fills the prefetch queues), from host
@@ -1308,13 +1321,12 @@ def _kernels_at_val_shape(records):
     K2 on the pred error of the 4 scales and the identity error)."""
     n, s, h, w = 2, 4, 512, 1024
     img, grids = _warp_inputs(n, s, h, w, seed=17)
-    ix, iy = (t.contiguous() for t in warp.unnormalize_grid(grids, h, w))
-    got = warp.warp_bilinear_nchw(img, ix, iy, reps=s)
-    ref = warp.warp_bilinear_nchw_plain(img, ix, iy, reps=s)
+    got = warp.warp_bilinear_nchw(img, grids, reps=s)
+    ref = warp.warp_bilinear_nchw_plain(img, grids, reps=s)
     torch.cuda.synchronize()
     errs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
-    ms = _time_ms(lambda: warp.warp_bilinear_nchw(img, ix, iy, reps=s))
-    plain_ms = _time_ms(lambda: warp.warp_bilinear_nchw_plain(img, ix, iy, reps=s))
+    ms = _time_ms(lambda: warp.warp_bilinear_nchw(img, grids, reps=s))
+    plain_ms = _time_ms(lambda: warp.warp_bilinear_nchw_plain(img, grids, reps=s))
     print(f"[cityscapes_exp212] K1 warp img {(n, 3, h, w)} S={s}: max|err| out/dfx/dfy = "
           f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (tolerance {KERNEL_TOL:.0e}); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -1541,6 +1553,7 @@ def _exp211_cityscapes(tmp, label):
     cfg = _packaged_cfg("exp211_label_selection_cityscapes.yml")
     cfg["data"].update(path=str(tmp / "cityscapes"), generated_depth_dir=str(tmp / "depth"))
     cfg["training"]["log_path"] = str(tmp / "ls")
+    cfg["training"]["n_tensorboard_imgs"] = 2  # of 20, as in `_exp211_label_selection`
     os.makedirs(tmp / "ls")
     teacher_cfg = copy.deepcopy(cfg)
     expand_cfg_vars(teacher_cfg)
@@ -1681,6 +1694,9 @@ def _exp211_label_selection(tmp, label, model_file):
     from `model_file`. Returns the loop's launches."""
     cfg = _packaged_cfg("exp211_label_selection_synthetic.yml")
     cfg["training"]["log_path"] = str(tmp / "ls_synthetic")
+    # 2 of the config's 20 validation samples as tensorboard images: their
+    # PNG encoding took most of a round's host time (see `_ls_dp_cfg`)
+    cfg["training"]["n_tensorboard_imgs"] = 2
     scoring_calls, ifp_seconds, rounds = [], [], []
     saved = {k: getattr(driver, k) for k in ("acquire_scores", "iterative_farthest_point",
                                              "train_on_subset", "train_main")}
@@ -1808,8 +1824,12 @@ def _ls_dp_cfg(tmp):
     moved the next round's scores by 1.4-1.9e-2 and swapped two of IFP's
     choices (PERF.md). Its last round validates once, after its last step,
     as the loop's earlier rounds do (the packaged config's two validations
-    stay in (b)): each validation writes two full-state checkpoints."""
+    stay in (b)): each validation writes two full-state checkpoints. Its
+    validations log no tensorboard images: encoding the config's 20 samples
+    of 4 panels at 512x1024 as PNGs took most of a round's host time, and the
+    comparison reads none of them."""
     cfg = _packaged_cfg("exp211_label_selection_synthetic.yml")
+    cfg["training"]["n_tensorboard_imgs"] = 0
     cfg["training"]["optimizer"] = {k: v * DP_LR_SCALE if k.endswith("lr") else v
                                     for k, v in cfg["training"]["optimizer"].items()}
     cfg["training"]["val_interval"] = {"0": 4000}

@@ -33,7 +33,7 @@ from ..engine.trainer import build_run
 
 # kernel classes, first match wins: (class, substrings of the kernel name)
 CLASSES = (
-    ("K1 warp", ("warp_bilinear",)),
+    ("K1 warp", ("warp_bilinear", "interleave_rgb")),
     ("K3 reprojection grad", ("reprojection_error_grad",)),
     ("K2 reprojection", ("reprojection_error_kernel",)),
     ("cuDNN NCHW <-> NHWC transposes", ("nchwToNhwc", "nhwcToNchw", "nchw_to_nhwc",

@@ -34,7 +34,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # img, ix, iy, out, dfx, dfy, n, c, h, w, reps, hg, wg, stream
+    # img, grid, img4 (scratch or NULL), out, dfx, dfy, n, c, h, w, reps, hg, wg, stream
     "warp_bilinear_nchw_f32": (_P,) * 6 + (_I,) * 7 + (_P,),
     # pred, target, out, m, c, h, w, reps, c1, c2, stream
     "reprojection_error_f32": (_P,) * 3 + (_I,) * 5 + (_F, _F, _P),

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda.warp import unnormalize_grid, warp_bilinear_nchw, warp_bilinear_nchw_plain
+from .cuda.warp import unnormalize_grid, warp_bilinear_nchw, warp_pixels_plain
 
 
 def grid_sample(img: torch.Tensor, grid: torch.Tensor, align_corners: bool = True
@@ -27,24 +27,23 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor, align_corners: bool = Tru
     else:
         ix = ((grid[..., 0].float() + 1.0) * w - 1.0) * 0.5
         iy = ((grid[..., 1].float() + 1.0) * h - 1.0) * 0.5
-    return warp_bilinear_nchw_plain(img, ix, iy)[0]
+    return warp_pixels_plain(img, ix, iy)[0]
 
 
 class GridSamplePackNCHW(torch.autograd.Function):
     """Warp `img` (N, C, H, W) at S grids (N, S, Hg, Wg, 2) -> (N, S, C, Hg, Wg).
 
     Border padding, align_corners=True. `img` is data: its gradient is None.
-    The forward runs K1 once and saves its d out/d ix and d out/d iy planes;
-    the backward reduces them against the cotangent over channels.
+    The forward runs K1 once on the grids as they are (K1 unnormalizes them)
+    and saves its d out/d ix and d out/d iy planes; the backward reduces them
+    against the cotangent over channels.
     """
 
     @staticmethod
     def forward(ctx, img, grids):
         n, s, hg, wg, _ = grids.shape
         h, w = img.shape[2:]
-        ix, iy = unnormalize_grid(grids.reshape(n * s, hg, wg, 2), h, w)
-        out, dfx, dfy = warp_bilinear_nchw(img.contiguous(), ix.contiguous(),
-                                           iy.contiguous(), reps=s)
+        out, dfx, dfy = warp_bilinear_nchw(img, grids.reshape(n * s, hg, wg, 2).float(), reps=s)
         ctx.save_for_backward(dfx, dfy)
         ctx.scale = (0.5 * (w - 1), 0.5 * (h - 1))
         ctx.grid_shape = grids.shape

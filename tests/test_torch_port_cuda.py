@@ -6,11 +6,12 @@ is not installed (the repository's conftest imports JAX, hence --noconftest):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 
-Tolerance 1e-5: both sides are f32; the warp picks identical corners from
-identical coordinates and the reprojection kernels sum their windows in the
-plain versions' order without FMA contraction. K3's is 1e-5 of the largest
-gradient value: flat windows amplify a last-bit difference of a variance term
-by up to 1/C2^2 in its coefficients.
+Tolerance 1e-5: both sides are f32; the warp unnormalizes the grids with the
+same f32 operations and picks identical corners, and the reprojection
+kernels sum their windows in the plain versions' order without FMA
+contraction. K3's is 1e-5 of the largest gradient value: flat windows
+amplify a last-bit difference of a variance term by up to 1/C2^2 in its
+coefficients.
 """
 
 import ctypes
@@ -52,20 +53,76 @@ def _grids(n, s, h, w, device, seed):
     return g.to(device)
 
 
-@pytest.mark.parametrize("shape", [(8, 4, 64, 96), (2, 2, 37, 61), (1, 1, 2, 3)])
-def test_warp_kernel_matches_plain(cuda, shape):
-    n, s, h, w = shape
-    img = torch.rand((n, 3, h, w), generator=torch.Generator().manual_seed(1)).to(cuda)
-    ix, iy = warp.unnormalize_grid(_grids(n, s, h, w, cuda, 11).reshape(n * s, h, w, 2), h, w)
-    ix, iy = ix.contiguous(), iy.contiguous()
+KERNEL_TOL = 1e-5
+
+
+def _warp_against_plain(img, grid, reps):
+    """K1 against its plain version, synchronized: the three planes, bit for
+    bit within KERNEL_TOL, and one launch counted."""
     before = warp.warp_bilinear_nchw.launches
-    got = warp.warp_bilinear_nchw(img, ix, iy, reps=s)
-    ref = warp.warp_bilinear_nchw_plain(img, ix, iy, reps=s)
+    got = warp.warp_bilinear_nchw(img, grid, reps=reps)
+    ref = warp.warp_bilinear_nchw_plain(img, grid, reps=reps)
     torch.cuda.synchronize()
     assert warp.warp_bilinear_nchw.launches == before + 1
+    m, c = grid.shape[0], img.shape[1]
     for g, r in zip(got, ref):
-        assert g.shape == (n * s, 3, h, w)
-        assert float((g - r).abs().max()) <= 1e-5
+        assert g.shape == (m, c, *grid.shape[1:3])
+        assert float((g - r).abs().max()) <= KERNEL_TOL
+
+
+# planes of an even pixel count (the vector path: 64x96, the main path's
+# 512x512, 50x97, 2x3), of an odd one (the scalar path: 37x61, 3x5); C = 3
+# (interleaved gathers) and C = 1 and 5 (per-plane gathers)
+@pytest.mark.parametrize("shape", [(2, 4, 3, 64, 96), (2, 4, 3, 512, 512), (2, 2, 3, 37, 61),
+                                   (1, 4, 3, 50, 97), (1, 1, 3, 2, 3), (1, 2, 3, 3, 5),
+                                   (2, 2, 1, 64, 96), (2, 2, 5, 37, 61)])
+def test_warp_kernel_matches_plain(cuda, shape):
+    n, s, c, h, w = shape
+    img = torch.rand((n, c, h, w), generator=torch.Generator().manual_seed(1)).to(cuda)
+    grid = _grids(n, s, h, w, cuda, 11).reshape(n * s, h, w, 2)
+    _warp_against_plain(img, grid, s)
+
+
+def _offset(t):
+    """`t`'s values in a view whose storage starts one float later."""
+    flat = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("c", [3, 1])
+def test_warp_kernel_takes_views_with_a_storage_offset(cuda, c):
+    n, s, h, w = 2, 2, 16, 24
+    img = torch.rand((n, c, h, w), generator=torch.Generator().manual_seed(3)).to(cuda)
+    grid = _grids(n, s, h, w, cuda, 13).reshape(n * s, h, w, 2)
+    _warp_against_plain(_offset(img), _offset(grid), s)
+
+
+@pytest.mark.parametrize("c", [3, 1])
+def test_warp_kernel_non_finite_and_far_coordinates(cuda, c):
+    n, s, h, w = 2, 2, 24, 32
+    img = torch.rand((n, c, h, w), generator=torch.Generator().manual_seed(4)).to(cuda)
+    grid = _grids(n, s, h, w, cuda, 14).reshape(n * s, h, w, 2)
+    specials = torch.tensor([float("nan"), float("inf"), -float("inf"), 1e30, -1e30, 3.5,
+                             -7.0], device=cuda)
+    flat = grid.view(-1)
+    where = torch.arange(0, flat.numel(), 5, device=cuda)
+    flat[where] = specials[torch.arange(where.numel(), device=cuda) % specials.numel()]
+    _warp_against_plain(img, grid, s)
+
+
+# 21,846 x 3 = 65,538 grids, and 65,537 images: more than a launch's y
+# dimension holds (K1's grids, the interleaving launch's images); planes of 4
+# pixels (vector path) and of 9 (scalar); C = 3 and 1
+@pytest.mark.parametrize("shape", [(21846, 3, 3, 2, 2), (21846, 3, 3, 3, 3),
+                                   (65537, 1, 3, 2, 2), (21846, 3, 1, 2, 2)])
+def test_warp_kernel_more_grids_than_a_launch_dimension(cuda, shape):
+    n, s, c, h, w = shape
+    img = torch.rand((n, c, h, w), generator=torch.Generator().manual_seed(5)).to(cuda)
+    grid = (4 * torch.rand((n * s, h, w, 2), generator=torch.Generator().manual_seed(6))
+            - 2).to(cuda)
+    _warp_against_plain(img, grid, s)
 
 
 def test_warp_grid_gradient_matches_plain_autograd(cuda):
@@ -74,11 +131,12 @@ def test_warp_grid_gradient_matches_plain_autograd(cuda):
     grids = _grids(n, s, h, w, cuda, 12)
     ct = torch.randn((n, s, 3, h, w), generator=torch.Generator().manual_seed(3)).to(cuda)
     g1 = grids.clone().requires_grad_()
+    before = warp.warp_bilinear_nchw.launches
     (grid_sample_pack_nchw(img, g1) * ct).sum().backward()
-    # plain autograd through the plain warp at the same pixel coordinates
+    assert warp.warp_bilinear_nchw.launches == before + 1
+    # plain autograd through the plain warp, which unnormalizes the grids
     g2 = grids.clone().requires_grad_()
-    ix, iy = warp.unnormalize_grid(g2.reshape(n * s, h, w, 2), h, w)
-    out, _, _ = warp.warp_bilinear_nchw_plain(img, ix, iy, reps=s)
+    out, _, _ = warp.warp_bilinear_nchw_plain(img, g2.reshape(n * s, h, w, 2), reps=s)
     (out.reshape(n, s, 3, h, w) * ct).sum().backward()
     assert float((g1.grad - g2.grad).abs().max()) <= 1e-4  # sums of 3 channels of O(10) terms
 
@@ -166,9 +224,11 @@ def test_divisions_by_nine_and_three_are_ieee_divisions(cuda):
 
 def test_kernels_reject_non_contiguous_input(cuda):
     img = torch.rand((2, 3, 8, 8), device=cuda)
-    ix = torch.rand((2, 8, 8), device=cuda)
+    grid = torch.rand((2, 8, 8, 2), device=cuda)
     with pytest.raises(ValueError):
-        warp.warp_bilinear_nchw(img.transpose(2, 3), ix, ix, reps=1)
+        warp.warp_bilinear_nchw(img.transpose(2, 3), grid, reps=1)
+    with pytest.raises(ValueError):
+        warp.warp_bilinear_nchw(img, grid.transpose(1, 2), reps=1)
     with pytest.raises(ValueError):
         reprojection_error(img.transpose(2, 3), img)
     g = torch.rand((2, 1, 8, 16), device=cuda)[..., ::2]  # (2, 1, 8, 8), strided

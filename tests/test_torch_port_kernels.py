@@ -63,9 +63,8 @@ def _images_and_grids(n, s, h, w, seed):
 
 def _port_warp(img, grids):
     n, s, h, w, _ = grids.shape
-    ix, iy = warp.unnormalize_grid(torch.from_numpy(grids.reshape(n * s, h, w, 2)), h, w)
     out = warp.warp_bilinear_nchw(torch.from_numpy(img.transpose(0, 3, 1, 2).copy()),
-                                  ix.contiguous(), iy.contiguous(), reps=s)
+                                  torch.from_numpy(grids.reshape(n * s, h, w, 2)), reps=s)
     return [t.reshape(n, s, 3, h, w).numpy() for t in out]
 
 
@@ -121,11 +120,19 @@ def test_reprojection_plain_matches_jax(shape):
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
     img = torch.rand(2, 3, 8, 8)
-    ix = torch.rand(4, 8, 8)
+    grid = torch.rand(4, 8, 8, 2)
     with pytest.raises(ValueError):
-        warp.warp_bilinear_nchw(img, ix, ix, reps=3)  # 4 grids for 2 images x 3
+        warp.warp_bilinear_nchw(img, grid, reps=3)  # 4 grids for 2 images x 3
     with pytest.raises(TypeError):
-        warp.warp_bilinear_nchw(img.double(), ix, ix, reps=2)
+        warp.warp_bilinear_nchw(img.double(), grid, reps=2)
+    with pytest.raises(TypeError):
+        warp.warp_bilinear_nchw(img, grid.double(), reps=2)
+    with pytest.raises(ValueError):
+        warp.warp_bilinear_nchw(img, torch.rand(4, 8, 8, 3), reps=2)  # not (x, y) pairs
+    with pytest.raises(ValueError):
+        warp.warp_bilinear_nchw(img, grid[..., 0], reps=2)  # pixel coordinates, 3-dim
+    with pytest.raises(ValueError):
+        warp.warp_bilinear_nchw(img[:, :, :0], grid, reps=2)  # no pixel to sample
     with pytest.raises(ValueError):
         reprojection_error(torch.rand(1, 3, 1, 8), torch.rand(1, 3, 1, 8))  # H < 2
     with pytest.raises(ValueError):
@@ -145,12 +152,12 @@ def test_cuda_tensor_without_card_raises_and_does_not_fall_back():
         "from improving_segmentation_with_selfsupervised_depth_tpu_torch.ops.cuda import warp\n"
         "def plain(*a, **k):\n"
         "    raise AssertionError('fell back to the plain version')\n"
-        "warp.warp_bilinear_nchw_plain = plain\n"
+        "warp.warp_bilinear_nchw_plain = warp.warp_pixels_plain = plain\n"
         "with FakeTensorMode():\n"
         "    img = torch.empty(2, 3, 8, 8, device='cuda')\n"
-        "    ix = torch.empty(4, 8, 8, device='cuda')\n"
+        "    grid = torch.empty(4, 8, 8, 2, device='cuda')\n"
         "    try:\n"
-        "        warp.warp_bilinear_nchw(img, ix, ix, reps=2)\n"
+        "        warp.warp_bilinear_nchw(img, grid, reps=2)\n"
         "    except RuntimeError as e:\n"
         "        print('raised:', e)\n"
         "    else:\n"

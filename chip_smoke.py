@@ -52,7 +52,9 @@ Phases, each reported on its own lines:
      width: 4 steps of batch 2 + 2, validated at 512x1024 after steps 1, 3
      and 4, best and last full-state checkpoints; then a second run with
      `auto_resume` whose loaded state must equal the first run's last state
-     bit for bit and which must take exactly the remaining 2 steps. K1 and
+     bit for bit and which must take exactly the remaining 2 steps, traced
+     by the trainer's profiler capture (`training.profile_dir`): its one
+     trace's step spans must hold 2 x one step's K1, K2 and K3. K1 and
      K2 held against their plain versions at the validation shape. Prints
      the package versions and cores, validation time per batch, the time the
      loop waited for each validation's checkpoint save (best and last from
@@ -1177,6 +1179,38 @@ _LABEL_IDS = np.array([7, 8, 11, 12, 13, 17, 19, 20, 21, 22, 23, 24, 25, 26, 27,
                        0, 4], np.uint8)
 EXP212_CITYSCAPES_PER_STEP = {"warp": 4, "reprojection": 8, "reprojection_grad": 4}
 EXP212_PER_VAL_BATCH = {"warp": 2, "reprojection": 4, "reprojection_grad": 0}
+# the trainer's profiler capture (`training.profile_dir`) in cityscapes_exp212:
+# the resumed run's steps 5 and 6, a window the run ends inside
+PROFILE_START, PROFILE_STEPS = 5, 2
+# kernel names in a trace, by launch counter; a K1 launch on 3 channels runs
+# both of its kernels
+TRACE_KERNELS = {"warp": ("warp_bilinear_nchw_kernel", "interleave_rgb_kernel"),
+                 "reprojection": ("reprojection_error_kernel",),
+                 "reprojection_grad": ("reprojection_error_grad_kernel",)}
+
+
+def _trace_counts(path):
+    """The port's kernels in the step spans (`step <n>`) of the Chrome trace
+    at `path`: a kernel counts in the span whose time range holds the CUDA
+    API call that launched it (the two share a correlation id). Returns
+    ({kernel name: count}, the spans' names, the trace's events, kernels)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") == "user_annotation" and e["name"].startswith("step ")]
+    calls = {e["args"]["correlation"]: e["ts"] for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    counts = {k: 0 for names in TRACE_KERNELS.values() for k in names}
+    for e in kernels:
+        at = calls.get(e.get("args", {}).get("correlation"))
+        if at is None or not any(a <= at <= b for a, b, _ in spans):
+            continue
+        for k in counts:
+            if k in e["name"]:
+                counts[k] += 1
+    return counts, [name for _, _, name in spans], len(events), len(kernels)
 
 
 def write_cityscapes_tree(root, n_train=16, n_val=8, seed=0):
@@ -1361,6 +1395,30 @@ def _check_validations(label, records, at):
         raise AssertionError(f"{label}: validated after steps {got}, expected {at}")
 
 
+def _check_trace(label, profile_dir, per_step, unprofiled, profiled):
+    """Run 2's capture: one trace of steps 5 and 6 whose step spans hold
+    PROFILE_STEPS times the kernels of one step; the profiled steps' host
+    times beside run 1's steps 2-4 (no capture)."""
+    files = sorted(os.listdir(profile_dir))
+    last = PROFILE_START + PROFILE_STEPS - 1
+    name = f"trace_rank0_steps{PROFILE_START}-{last}.json"
+    if files != [name]:
+        raise AssertionError(f"{label}: profile_dir holds {files}, expected [{name}]")
+    counts, spans, n_events, n_kernels = _trace_counts(profile_dir / name)
+    expect = {k: PROFILE_STEPS * per_step[key] for key, names in TRACE_KERNELS.items()
+              for k in names}
+    print(f"[{label}] profiler capture (training.profile_dir, profile_start {PROFILE_START}, "
+          f"profile_steps {PROFILE_STEPS}) of run 2: {name}, "
+          f"{os.path.getsize(profile_dir / name) / 2**20:.1f} MiB, {n_events} events, "
+          f"{n_kernels} kernels; spans {spans}; in them {counts} (expected {expect})")
+    print(f"[{label}] host seconds a step (loader wait + dispatch): run 1 steps 2-4 "
+          f"{[round(r['data_seconds'] + r['step_seconds'], 4) for r in unprofiled[1:]]}, "
+          f"run 2 steps 5-6 profiled "
+          f"{[round(r['data_seconds'] + r['step_seconds'], 4) for r in profiled]}")
+    if spans != [f"step {i}" for i in range(PROFILE_START, last + 1)] or counts != expect:
+        raise AssertionError(f"{label}: trace spans {spans}, kernels {counts}, expected {expect}")
+
+
 def phase_cityscapes_exp212(records):
     """exp-212 from a generated Cityscapes tree through train_main, cut and
     resumed (see the module docstring). Returns the launches of the two
@@ -1436,6 +1494,8 @@ def phase_cityscapes_exp212(records):
 
         saved = _run_state(run1)
         cfg2 = config(7, True)
+        cfg2["training"].update(profile_dir=str(tmp / "traces"), profile_start=PROFILE_START,
+                                profile_steps=PROFILE_STEPS)
         run2 = trainer.build_run(cfg2, "cuda:0")
         loaded = _run_state(run2)
         diff = _equal_trees(loaded, saved)
@@ -1472,6 +1532,7 @@ def phase_cityscapes_exp212(records):
               f"{per_val}")
         if per_step != EXP212_CITYSCAPES_PER_STEP or per_val != EXP212_PER_VAL_BATCH:
             raise AssertionError(f"{label}: launches {per_step}, {per_val}")
+        _check_trace(label, tmp / "traces", per_step, first, second)
         del batch, unlabeled, val_batch
         run2.close()
         run2 = None

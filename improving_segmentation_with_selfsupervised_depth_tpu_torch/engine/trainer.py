@@ -45,13 +45,15 @@ loads a checkpoint. Validation pads a batch that does not split over the
 ranks as the JAX trainer does, leaves the padded rows out of its means and
 gathers the logged images, so that every rank sees the global scores and
 takes the loop's decisions (best checkpoint, plateau, early stopping) alike.
-What the port does not run yet raises NotImplementedError naming its
-ROADMAP item; `training.disable_depth_estimator` is read by nothing, as in
-the JAX package.
+`training.profile_dir` traces a window of the loop's steps with
+`torch.profiler` (`StepCapture`). Every key the JAX trainer reads has its
+counterpart here; `training.disable_depth_estimator` is read by nothing,
+as in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib.util
 import logging
@@ -577,7 +579,74 @@ def _write_training_scalars(run: Run, cfg: Dict[str, Any], records, step: int) -
         run.writer.add_scalar("training/memory", psutil.virtual_memory().used / 1e9, step + 1)
 
 
+class StepCapture:
+    """`training.profile_dir`: a `torch.profiler` trace of the run loop's
+    steps `profile_start` (default 10) to `profile_start + profile_steps - 1`
+    (`profile_steps` default 5), as the JAX trainer's `jax.profiler` capture
+    (JAX `engine/trainer.py:300-317`): started when the loop's step first
+    equals `profile_start`, stopped when it reaches `profile_start +
+    profile_steps`. Each profiled step's call is a `record_function` span
+    `step <n>`; the loaders' wait lies between them. The CPU is recorded, and
+    on a CUDA device the device too: a trace that holds no device activity
+    there raises. Each rank writes its own Chrome trace (chrome://tracing,
+    Perfetto) to `<profile_dir>/trace_rank<r>_steps<first>-<last>.json`.
+    Unlike JAX, which leaves its trace open where the loop ends inside the
+    window (early stopping, the last step, an error), `close` stops it and
+    writes the steps taken. Without `profile_dir` nothing is made."""
+
+    def __init__(self, training: Dict[str, Any], device: str):
+        self.dir = training.get("profile_dir")
+        self.start = training.get("profile_start", 10)
+        self.end = self.start + training.get("profile_steps", 5)
+        self.on_cuda = torch.device(device).type == "cuda"
+        self.prof = None
+        self.taken = 0  # the profiled steps
+
+    def at(self, step: int) -> None:
+        """The loop has counted `step` and not yet run it."""
+        if self.dir and step == self.start:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.on_cuda:
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+                if activities[-1] not in torch.profiler.supported_activities():
+                    raise RuntimeError("training.profile_dir: this torch cannot profile CUDA")
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+        if self.prof is not None and step == self.end:
+            self.close()
+
+    def span(self, step: int):
+        if self.prof is None:
+            return contextlib.nullcontext()
+        self.taken += 1
+        return torch.profiler.record_function(f"step {step}")
+
+    def close(self) -> None:
+        """Stop a capture in progress and write its trace."""
+        if self.prof is None:
+            return
+        prof, self.prof = self.prof, None
+        prof.stop()
+        last = self.start + self.taken - 1
+        path = os.path.join(self.dir, f"trace_rank{dist.rank()}_steps{self.start}-{last}.json")
+        os.makedirs(self.dir, exist_ok=True)
+        prof.export_chrome_trace(path)
+        logger.info("profiled steps %d to %d: %s", self.start, last, path)
+        if self.on_cuda and self.taken and not any(
+                e.device_type() == torch.autograd.DeviceType.CUDA
+                for e in prof.profiler.kineto_results.events()):
+            raise RuntimeError(f"training.profile_dir: {path} holds no device activity")
+
+
 def _loop(run: Run, cfg: Dict[str, Any]) -> List[Dict[str, float]]:
+    capture = StepCapture(cfg["training"], run.device)
+    try:
+        return _steps(run, cfg, capture)
+    finally:
+        capture.close()
+
+
+def _steps(run: Run, cfg: Dict[str, Any], capture: StepCapture) -> List[Dict[str, float]]:
     training = cfg["training"]
     train_iters = training["train_iters"]
     print_interval = training.get("print_interval", 100)
@@ -602,10 +671,14 @@ def _loop(run: Run, cfg: Dict[str, Any]) -> List[Dict[str, float]]:
                 if host is None:
                     break
                 step += 1
+                t_capture = time.perf_counter()
+                capture.at(step)
+                t0 += time.perf_counter() - t_capture  # a profiler's start or stop is no wait
                 batch = run.to_device(host)
                 unlabeled = run.next_unlabeled()
                 t1 = time.perf_counter()
-                record: Dict[str, Any] = dict(run.step(batch, unlabeled))
+                with capture.span(step):
+                    record: Dict[str, Any] = dict(run.step(batch, unlabeled))
                 record.update(data_seconds=t1 - t0, step_seconds=time.perf_counter() - t1)
                 # the debug tensors stay on the device and are read only where
                 # they are drawn

@@ -18,27 +18,32 @@ import torch.nn.functional as F
 from ..parallel import dist
 
 
+def _stats_dtype(x: torch.Tensor) -> torch.Tensor:
+    """`x` in f32, or in f64 where it is f64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with the JAX package's (Flax) semantics.
 
     Train mode normalizes with the biased batch variance, as torch does, but
     also tracks the running variance with the biased batch variance, where
     torch would use the unbiased one; momentum 0.1 here is Flax's 0.9. The
-    tracked statistics are computed in f32 whatever the input's dtype (Flax
-    computes BatchNorm statistics in f32 under a bf16 `dtype`); the output
-    keeps the input's dtype.
+    tracked statistics are computed in f32 for an input of 32 bits or fewer
+    (Flax computes BatchNorm statistics in f32 under a bf16 `dtype`) and in
+    f64 for an f64 input; the output keeps the input's dtype.
 
     Over more than one rank (`parallel/dist.py`) train mode normalizes with
     the statistics of the global batch, as BatchNorm under the JAX package's
     data mesh: every rank's per-channel count, mean (summed in f64) and
-    biased variance (f32) are gathered through one autograd-aware
-    all-reduce and combined by Chan's formula in f64, mean = sum(n_r m_r) /
-    n, var = sum(n_r (v_r + (m_r - mean)^2)) / n, so that the backward
-    all-reduces too, as SyncBatchNorm's does. A channel whose mean lies far
-    above its spread (the ASPP pooling branch's, one value per sample) keeps
-    its variance: the f64 means leave no f32 rounding of a mean to cancel
-    against it. The running statistics take the global mean and biased
-    variance, equal on every rank.
+    biased variance (in the statistics' dtype) are gathered through one
+    autograd-aware all-reduce and combined by Chan's formula in f64,
+    mean = sum(n_r m_r) / n, var = sum(n_r (v_r + (m_r - mean)^2)) / n, so
+    that the backward all-reduces too, as SyncBatchNorm's does. A channel
+    whose mean lies far above its spread (the ASPP pooling branch's, one
+    value per sample) keeps its variance: the f64 means leave no f32
+    rounding of a mean to cancel against it. The running statistics take
+    the global mean and biased variance, equal on every rank.
     """
 
     # set while `frozen_running_stats` is active: train mode then normalizes
@@ -56,12 +61,12 @@ class BatchNorm2d(nn.BatchNorm2d):
             return self._forward_global(x)
         if not BatchNorm2d._stats_frozen:
             with torch.no_grad():
-                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+                var, mean = torch.var_mean(_stats_dtype(x), dim=(0, 2, 3), unbiased=False)
                 self._track(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
     def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = _stats_dtype(x)
         dims = (0, 2, 3)
         n = xf.numel() // xf.shape[1]
         mean = xf.sum(dims, dtype=torch.float64) / n
@@ -71,7 +76,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         total = counts.sum(0)
         g_mean = (counts * means).sum(0) / total
         g_var = (counts * (variances + (means - g_mean) ** 2)).sum(0) / total
-        g_mean, g_var = g_mean.float(), g_var.float()
+        g_mean, g_var = g_mean.to(xf.dtype), g_var.to(xf.dtype)
         if not BatchNorm2d._stats_frozen:
             with torch.no_grad():
                 self._track(g_mean, g_var)

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import os
 import time
 from typing import Any, Dict, List, Optional
 
@@ -223,7 +224,7 @@ def batchnorm(device: str, x: torch.Tensor, g: torch.Tensor, weight: torch.Tenso
     gradient divided by the world size, the factor DDP's averaging takes out
     of parameter gradients), the parameter gradients averaged over the ranks
     as DDP averages them, and the running statistics."""
-    bn = BatchNorm2d(x.shape[1]).to(device)
+    bn = BatchNorm2d(x.shape[1]).to(device, x.dtype)
     with torch.no_grad():
         bn.weight.copy_(weight)
         bn.bias.copy_(bias)
@@ -334,16 +335,39 @@ def _rank0_rows():
         DataLoader.rows = saved
 
 
-def label_selection(device: str, cfg: Dict[str, Any]) -> Dict[str, Any]:
+@contextlib.contextmanager
+def _float64_runs():
+    """Every run the trainer builds inside computes in f64: its model is
+    built as in f32 (the same initial weights) and cast, its batches are
+    cast at the copy to the device."""
+    from ..engine import trainer
+
+    build, to_device = trainer.build_model, trainer.Run.to_device
+
+    def to_device64(run, host):
+        return {k: v.double() if v.is_floating_point() else v
+                for k, v in to_device(run, host).items()}
+
+    trainer.build_model = lambda *args, **kwargs: build(*args, **kwargs).double()
+    trainer.Run.to_device = to_device64
+    try:
+        yield
+    finally:
+        trainer.build_model, trainer.Run.to_device = build, to_device
+
+
+def label_selection(device: str, cfg: Dict[str, Any], dtype: str = "float32") -> Dict[str, Any]:
     """`label_selection/driver.py::label_selection_loop` of the config, TF32
-    off: on rank 0 alone first (`dist.local_only`, the log path's last part
-    suffixed `_one`, the same synthetic items), then on every rank, its
-    rounds trained data-parallel, then once more on every rank with a fault
-    planted (`_rank0_rows`) and only the first round trained, to show what
-    the comparison reads of a wrong data-parallel step. Each trained
-    round's checkpoint is read back on rank 0 and its first moments held
-    against the one process's round. Returns {"world": the round records,
-    "launches": the kernels' launches over that loop} and, on rank 0, "one"
+    off, its runs in `dtype` ("float64": `_float64_runs`): on rank 0 alone
+    first (`dist.local_only`, the log path's last part suffixed `_one`, the
+    same synthetic items), then on every rank, its rounds trained
+    data-parallel, then once more on every rank with a fault planted
+    (`_rank0_rows`) and only the first round trained, to show what the
+    comparison reads of a wrong data-parallel step. Each trained round's
+    checkpoint is read back on rank 0 and its first moments held against the
+    one process's round. Returns {"world": the round records, "launches":
+    the kernels' launches over that loop, "hash_seed": the ranks'
+    PYTHONHASHSEED, which seeds the synthetic items} and, on rank 0, "one"
     (its records), "moments" (per trained round, |world - one| / |one| of
     the first moments), "faulty" and "faulty_moments" (the same of the
     planted fault)."""
@@ -356,8 +380,9 @@ def label_selection(device: str, cfg: Dict[str, Any]) -> Dict[str, Any]:
         with _rounds_read_back(moments):
             return label_selection_loop(conf, device), moments
 
-    out: Dict[str, Any] = {}
-    with _tf32({}):
+    out: Dict[str, Any] = {"hash_seed": os.environ.get("PYTHONHASHSEED")}
+    runs = _float64_runs() if dtype == "float64" else contextlib.nullcontext()
+    with _tf32({}), runs:
         if dist.is_main():
             with dist.local_only():
                 out["one"], one = loop(cfg, "_one")

@@ -38,18 +38,28 @@ Cases:
   same confusion matrix, mIoU and loss means (rtol 1e-5);
 - a checkpoint written by two ranks has the single-process keys, and one
   process resumes it bit for bit;
+- cross-replica BatchNorm on an f64 input keeps f64: output, gradients and
+  running statistics within 1e-12 of one process's;
 - label selection's loop (`label_selection_loop`) on the JAX package's
   synthetic config of `tests/test_torch_port_label_selection.py` (64x96,
   resnet18, rounds of 2 and 4 samples, one SGD step each at `TRAINING_DP`'s
   rates, IFP on the pseudo-depth features biased by the student's depth
   errors, as exp-211's bias weight 1000), its rounds trained over the two
   ranks, against rank 0 alone (`dist.local_only`, the same synthetic
-  items): the same selections, the second round's scores (depth errors
-  of a student one step from the seed) within `LS_SCORE_RTOL`, and each
-  round's SGD momentum (its gradient) read back from its checkpoint within
-  `LS_MOMENT_RTOL` in norm; with a fault planted (every rank training on
-  rank 0's rows) the first round's momentum lies beyond it; no kernel
-  launched; rank 0 wrote the subset files and removed the models;
+  items), every run in f64 (`compare._float64_runs`: the f32 initial
+  weights and the batches cast): the same selections, the second round's
+  scores (depth errors of a student one step from the seed) within
+  `LS_SCORE_RTOL`, and each round's SGD momentum (its gradient) read back
+  from its checkpoint within `LS_MOMENT_RTOL` in norm; with a fault planted
+  (every rank training on rank 0's rows) the first round's momentum lies
+  beyond it; no kernel launched; rank 0 wrote the subset files and removed
+  the models. The synthetic items are seeded from string hashes, and each
+  launch draws its ranks' PYTHONHASHSEED anew, so every run checks other
+  items (a failure names its hash seed). In f32 a ReLU input within the
+  rounding of the two sides' BatchNorm statistics (~1e-6) takes the other
+  branch on one side: on 2 of 30 hash seeds one such element carried enough
+  gradient to move round 2's moments by 2.3-2.6e-2; in f64 that rounding is
+  1e-16;
 - `label_selection_main` launches the loop on one rank per GPU where JAX's
   rule gives more than one.
 """
@@ -98,16 +108,18 @@ STEP_CASES = {
 # trains one SGD step at TRAINING_DP's rates, the steps' above, which hold
 # parameters within 1e-5 of one process; a score, the mean log-depth error
 # of a student one such step from the seed, is held at ten times that
-# (measured: at most 1.1e-6 over three item seeds). At the config's own
-# rates a discrete flip (a max-pooling tie of the blocky synthetic frames)
-# moved the gradient by up to 1e-2 (the steps' bound) and the scores by
-# 2.9e-3 under SGD at lr 1e-2; Adam's first step, lr * sign(g), turns such
-# flips into full steps
+# (measured in f32: at most 1.1e-6 over three item seeds; in f64 equal). At
+# the config's own rates a discrete flip (a max-pooling tie of the blocky
+# synthetic frames) moved the gradient by up to 1e-2 (the steps' bound) and
+# the scores by 2.9e-3 under SGD at lr 1e-2; Adam's first step, lr *
+# sign(g), turns such flips into full steps
 LS_SCORE_RTOL = 1e-4
 # each round's momentum (one step: its gradient plus the weight decay) at
 # world size 2 against one process, in norm: the steps' gradient bound
-# (measured 6.1e-5 and 1.1e-5; every rank training on rank 0's rows: 1.6).
-# Unlike the scores it does not shrink with the rates
+# (measured in f64 below 1e-13 on every hash seed tried; in f32 1e-5 to
+# 8e-5 where no ReLU flips, 2.6e-2 where one did; every rank training on
+# rank 0's rows: 1.6-3.1). Unlike the scores it does not shrink with the
+# rates
 LS_MOMENT_RTOL = 1e-2
 
 
@@ -164,12 +176,12 @@ def dp(tmp_path_factory):
     x[:, 3:] = torch.randn((4, 3, 1, 1), generator=g) * 0.01 + 10
     bn_args = (x, torch.randn((4, 6, 5, 7), generator=g), torch.rand(6, generator=g) + 0.5,
                torch.randn(6, generator=g))
-    calls = [("batchnorm", bn_args), ("validate", (_val_cfg(tmp, "val"),)),
-             ("train", (_train_cfg(tmp, "w2"),))]
+    calls = [("batchnorm", bn_args), ("batchnorm", tuple(a.double() for a in bn_args)),
+             ("validate", (_val_cfg(tmp, "val"),)), ("train", (_train_cfg(tmp, "w2"),))]
     calls += [("run_steps", (_step_spec(*case),)) for case in STEP_CASES.values()]
-    calls.append(("label_selection", (_ls_cfg(tmp_path_factory.mktemp("ls")),)))
+    calls.append(("label_selection", (_ls_cfg(tmp_path_factory.mktemp("ls")), "float64")))
     ranks = launch(compare.run_all, (calls,), world=WORLD, devices=["cpu"] * WORLD, threads=2)
-    names = ["batchnorm", "validate", "train", *STEP_CASES, "label_selection"]
+    names = ["batchnorm", "batchnorm64", "validate", "train", *STEP_CASES, "label_selection"]
     return {"tmp": tmp, "bn_args": bn_args,
             "results": [dict(zip(names, r)) for r in ranks]}
 
@@ -266,6 +278,16 @@ def test_batchnorm_cross_replica_matches_one_process(dp):
     assert float(want["y"][:, far].abs().max()) > 0.5
 
 
+def test_batchnorm_cross_replica_keeps_float64(dp):
+    """An f64 input's statistics, output and gradients stay in f64 over the
+    ranks: within 1e-12 of one process's, where f32 would leave 1e-7."""
+    got = dp["results"][0]["batchnorm64"]
+    want = compare.batchnorm("cpu", *(a.double() for a in dp["bn_args"]))
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype == torch.float64, k
+        np.testing.assert_allclose(got[k].numpy(), v.numpy(), rtol=1e-12, atol=1e-12, err_msg=k)
+
+
 @pytest.mark.parametrize("case", list(STEP_CASES))
 def test_steps_at_world_2_match_one_process(dp, case):
     want = compare.run_steps("cpu", _step_spec(*STEP_CASES[case]))
@@ -346,13 +368,16 @@ def test_label_selection_at_world_2_matches_one_process(dp):
     assert one[0]["scores"] is None and res[1]["world"][1]["scores"] == world[1]["scores"]
     (idx, crit), (idx_one, crit_one) = zip(*world[1]["scores"]), zip(*one[1]["scores"])
     assert idx == idx_one and len(idx) == 6  # the unlabeled samples, scored
-    np.testing.assert_allclose(np.array(crit), np.array(crit_one), rtol=LS_SCORE_RTOL)
+    seed = f"PYTHONHASHSEED={res[0]['hash_seed']}"
+    np.testing.assert_allclose(np.array(crit), np.array(crit_one), rtol=LS_SCORE_RTOL,
+                               err_msg=seed)
     assert np.min(crit_one) > 0
     # both rounds' trained models: the momentum of the one step, read back
-    assert len(res[0]["moments"]) == 2 and max(res[0]["moments"]) <= LS_MOMENT_RTOL, res[0]
+    assert len(res[0]["moments"]) == 2 and max(res[0]["moments"]) <= LS_MOMENT_RTOL, (
+        seed, res[0]["moments"])
     # the planted fault (rank 1 trained on rank 0's rows) is seen
     assert len(res[0]["faulty_moments"]) == 1
-    assert res[0]["faulty_moments"][0] > 10 * LS_MOMENT_RTOL, res[0]["faulty_moments"]
+    assert res[0]["faulty_moments"][0] > 10 * LS_MOMENT_RTOL, (seed, res[0]["faulty_moments"])
     assert not any(any(v.values()) for v in (res[0]["launches"], res[1]["launches"]))
     base = os.path.dirname(world[0]["model_file"])
     assert sorted(f for f in os.listdir(os.path.dirname(base)) if f.endswith(".json")) == [

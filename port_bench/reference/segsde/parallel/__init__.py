@@ -1,0 +1,1 @@
+"""Part of the frozen reference copy (see the package docstring)."""

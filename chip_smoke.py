@@ -910,7 +910,7 @@ def _run_slice(label, cfg, per_step, per_val_batch=None, n_validations=0, run=No
     for i, r in enumerate(records, start=1):
         losses = " ".join(f"{k} {v:.6f}" for k, v in r.items()
                           if k.endswith("loss") and not k.startswith("val/"))
-        print(f"[{label}] step {i}: {losses}  dispatch {r['step_seconds']:.4f} s, waiting "
+        print(f"[{label}] step {i}: {losses}  dispatch {r['dispatch_seconds']:.4f} s, waiting "
               f"on the loaders {r['data_seconds']:.4f} s")
         val = {k[4:]: v for k, v in r.items() if k.startswith("val/")}
         if val:
@@ -1412,9 +1412,9 @@ def _check_trace(label, profile_dir, per_step, unprofiled, profiled):
           f"{os.path.getsize(profile_dir / name) / 2**20:.1f} MiB, {n_events} events, "
           f"{n_kernels} kernels; spans {spans}; in them {counts} (expected {expect})")
     print(f"[{label}] host seconds a step (loader wait + dispatch): run 1 steps 2-4 "
-          f"{[round(r['data_seconds'] + r['step_seconds'], 4) for r in unprofiled[1:]]}, "
+          f"{[round(r['data_seconds'] + r['dispatch_seconds'], 4) for r in unprofiled[1:]]}, "
           f"run 2 steps 5-6 profiled "
-          f"{[round(r['data_seconds'] + r['step_seconds'], 4) for r in profiled]}")
+          f"{[round(r['data_seconds'] + r['dispatch_seconds'], 4) for r in profiled]}")
     if spans != [f"step {i}" for i in range(PROFILE_START, last + 1)] or counts != expect:
         raise AssertionError(f"{label}: trace spans {spans}, kernels {counts}, expected {expect}")
 
@@ -1465,7 +1465,7 @@ def phase_cityscapes_exp212(records):
         for i, r in enumerate(first, start=1):
             print(f"[{label}] run 1 step {i}: total_loss {r['total_loss']:.6f} unlabeled_loss "
                   f"{r['unlabeled_loss']:.6f} waiting on the loaders {r['data_seconds']:.4f} "
-                  f"s, dispatch {r['step_seconds']:.4f} s" + (
+                  f"s, dispatch {r['dispatch_seconds']:.4f} s" + (
                       f"; validation mIoU {r['val/Mean IoU']:.6f}, "
                       f"{r['val/eval_seconds_per_batch']:.4f} s per batch"
                       if "val/Mean IoU" in r else ""))
@@ -1698,7 +1698,7 @@ def _exp211_cityscapes(tmp, label):
         print(f"[{label}] step {i}: total_loss {r['total_loss']:.6f} segmentation_loss "
               f"{r['segmentation_loss']:.6f} pseudo_depth_loss {r['pseudo_depth_loss']:.6f} "
               f"waiting on the loaders {r['data_seconds']:.4f} s, dispatch "
-              f"{r['step_seconds']:.4f} s" + (
+              f"{r['dispatch_seconds']:.4f} s" + (
                   f"; validation mIoU {r['val/Mean IoU']:.6f}, depth/abs_rel "
                   f"{r['val/depth/abs_rel']:.6f}, {r['val/eval_seconds_per_batch']:.4f} s per "
                   f"batch of 2 at 512x1024" if "val/Mean IoU" in r else ""))
@@ -1820,7 +1820,7 @@ def _exp211_label_selection(tmp, label, model_file):
         vals = [v for v in r["records"] if "val/eval_seconds_per_batch" in v]
         print(f"[{label}] round nlabels{n}: train_on_subset {r['seconds']:.3f} s (a new "
               f"run, {len(r['records'])} steps, dispatch " + " ".join(
-                  f"{v['step_seconds']:.4f}" for v in r["records"]) + " s; "
+                  f"{v['dispatch_seconds']:.4f}" for v in r["records"]) + " s; "
               f"{len(vals)} validations of {r['n_val_batches']} batches at "
               + ", ".join(f"{v['val/eval_seconds_per_batch']:.4f}" for v in vals)
               + " s per batch, the loop waiting for the best and last checkpoints "

@@ -102,6 +102,7 @@ from ..ops.mixing import (
 from ..ops.photometric import key_of
 from ..ops.resize import resize_bilinear
 from ..parallel import dist
+from ..utils.spans import span
 from .state import ema_model_names, update_ema
 from .trainer_depth_eval import eval_depth_metrics
 
@@ -199,27 +200,28 @@ class StepDraws:
 
 
 def _monodepth_loss(cfg: StepConfig, batch, outputs, generator, tie_break_noise):
-    outputs = photometric.generate_images_pred(
-        batch, outputs, scales=cfg.scales, frame_ids=cfg.frame_ids,
-        min_depth=cfg.min_depth, max_depth=cfg.max_depth)
-    kw = dict(scales=cfg.scales, frame_ids=cfg.frame_ids,
-              disparity_smoothness=cfg.disparity_smoothness, no_ssim=cfg.no_ssim,
-              avg_reprojection=cfg.avg_reprojection,
-              disable_automasking=cfg.disable_automasking, fused_pred=cfg.fused_pred_loss,
-              pred_dtype=cfg.photometric_dtype)
-    if cfg.remat_photometric:
-        identity = None
-        if not cfg.disable_automasking:
-            identity = photometric.identity_reprojection(
-                batch, frame_ids=cfg.frame_ids, no_ssim=cfg.no_ssim,
-                avg_reprojection=cfg.avg_reprojection, generator=generator,
-                tie_break_noise=tie_break_noise)
-        losses = checkpoint(lambda out: photometric.compute_losses(
-            batch, out, identity_losses=identity, **kw), outputs, use_reentrant=False)
-    else:
-        losses = photometric.compute_losses(batch, outputs, generator=generator,
-                                            tie_break_noise=tie_break_noise, **kw)
-    return cfg.monodepth_lambda * losses["loss"]
+    with span("photometric"):
+        outputs = photometric.generate_images_pred(
+            batch, outputs, scales=cfg.scales, frame_ids=cfg.frame_ids,
+            min_depth=cfg.min_depth, max_depth=cfg.max_depth)
+        kw = dict(scales=cfg.scales, frame_ids=cfg.frame_ids,
+                  disparity_smoothness=cfg.disparity_smoothness, no_ssim=cfg.no_ssim,
+                  avg_reprojection=cfg.avg_reprojection,
+                  disable_automasking=cfg.disable_automasking, fused_pred=cfg.fused_pred_loss,
+                  pred_dtype=cfg.photometric_dtype)
+        if cfg.remat_photometric:
+            identity = None
+            if not cfg.disable_automasking:
+                identity = photometric.identity_reprojection(
+                    batch, frame_ids=cfg.frame_ids, no_ssim=cfg.no_ssim,
+                    avg_reprojection=cfg.avg_reprojection, generator=generator,
+                    tie_break_noise=tie_break_noise)
+            losses = checkpoint(lambda out: photometric.compute_losses(
+                batch, out, identity_losses=identity, **kw), outputs, use_reentrant=False)
+        else:
+            losses = photometric.compute_losses(batch, outputs, generator=generator,
+                                                tie_break_noise=tie_break_noise, **kw)
+        return cfg.monodepth_lambda * losses["loss"]
 
 
 def _concat_batches(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
@@ -227,6 +229,11 @@ def _concat_batches(a: Dict[str, torch.Tensor], b: Dict[str, torch.Tensor]):
     the same trailing shape (JAX train_steps.py:296-299)."""
     return {k: torch.cat([v, b[k]]) for k, v in a.items()
             if k in b and b[k].shape[1:] == v.shape[1:]}
+
+
+def _forward(model: torch.nn.Module, batch: Dict[str, torch.Tensor], **kw):
+    with span("forward"):
+        return model(batch, **kw)
 
 
 def _split_outputs(outputs: Dict[str, torch.Tensor], n: int):
@@ -318,6 +325,18 @@ def strong_transform(cfg: StepConfig, mask, data, draws: StepDraws, generator=No
     return data
 
 
+@torch.no_grad()
+def _mixed(cfg: StepConfig, argmax_u_w, depths, images, teacher_softmax, draws: StepDraws,
+           generator):
+    """The mix mask, the mixed and strongly augmented images and the mixed
+    soft pseudo-labels."""
+    with span("mix"):
+        mix_mask = generate_mix_mask(cfg, argmax_u_w, depths, draws, generator)
+        mixed_imgs = strong_transform(cfg, mix_mask, images, draws, generator)
+        mixed_softmax, _ = mix(mix_mask, teacher_softmax)
+    return mix_mask, mixed_imgs, mixed_softmax
+
+
 def _rank_draws(draws: StepDraws) -> StepDraws:
     """The injected draws with a batch axis cut to this rank's rows."""
     if dist.world() == 1:
@@ -396,7 +415,25 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
     `cfg.unlabeled` without `cfg.use_ema` is the supervised step, the
     unlabeled batch unused, as in the JAX package. Over more than one rank
     `model` is the DDP-wrapped student (the module docstring).
+
+    The step's phases are spans (`utils/spans.py`), inside one `train_step`
+    span; a name repeats where its phase runs more than once: `teacher` (the
+    teacher's forward, softmax and argmax, `mix_use_gt`'s blend), `forward`
+    (each student forward, the fused one's concatenation included),
+    `photometric` (each photometric loss; under `remat_photometric` its
+    chain runs again inside `backward`), `mix` (mix mask, strong transform,
+    mixed pseudo-labels), `backward` (`zero_grad` and the backward, whose
+    launches come from autograd's device thread), `optimizer`, `ema`. The
+    CE, pseudo-label and feature-distance losses run in `train_step` outside
+    any phase.
     """
+    with span("train_step"):
+        return _train_step(model, optimizer, batch, cfg, generator, tie_break_noise,
+                           unlabeled_batch, teacher, draws)
+
+
+def _train_step(model, optimizer, batch, cfg: StepConfig, generator, tie_break_noise,
+                unlabeled_batch, teacher, draws: StepDraws) -> Dict[str, torch.Tensor]:
     student = model.module if isinstance(model, DistributedDataParallel) else model
     tie_break_noise = None if tie_break_noise is None else dist.rank_rows(tie_break_noise)
     draws = _rank_draws(draws)
@@ -409,8 +446,8 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
     # reference teacher (train.py:444-445); no gradient
     teacher_softmax = argmax_u_w = None
     if semi:
-        teacher.train()
-        with torch.no_grad():
+        with span("teacher"), torch.no_grad():
+            teacher.train()
             t_out = teacher(unlabeled_batch, use_pose=False)
             teacher_softmax = torch.softmax(t_out["semantics"].float(), dim=1)
             if cfg.mix_use_gt:
@@ -435,19 +472,16 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
         # argmax): the mixed batch is made before the student forward
         depths = (unlabeled_batch["pseudo_depth"][:, 0] if "pseudo_depth" in unlabeled_batch
                   else None)
-        with torch.no_grad():
-            mix_mask = generate_mix_mask(cfg, argmax_u_w, depths, draws, generator)
-            mixed_imgs = strong_transform(cfg, mix_mask, unlabeled_batch[image_key], draws,
-                                          generator)
-            mixed_softmax, _ = mix(mix_mask, teacher_softmax)
-        pre_mix = (depths, mix_mask, mixed_imgs, mixed_softmax)
+        pre_mix = (depths, *_mixed(cfg, argmax_u_w, depths, unlabeled_batch[image_key],
+                                   teacher_softmax, draws, generator))
 
     zero = torch.zeros((), device=batch[image_key].device)
     mono_loss = mono_loss_u = feat_dist_loss = zero
     out_1 = out_s = None
     if fused:
-        comb = _concat_batches(batch, unlabeled_batch)
-        outputs = model(comb)
+        with span("forward"):
+            comb = _concat_batches(batch, unlabeled_batch)
+            outputs = model(comb)
         # each per-scale loss is a batch mean: the 2N loss stands for each half's
         mono_loss = mono_loss_u = _monodepth_loss(
             cfg, comb, outputs, generator,
@@ -456,10 +490,11 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
     elif fused_mixed:
         mixed_batch = dict(unlabeled_batch)
         mixed_batch[image_key] = pre_mix[2]
-        outputs, out_s = _split_outputs(
-            model(_concat_batches(batch, mixed_batch), use_pose=False), n_lab)
+        with span("forward"):
+            outputs = model(_concat_batches(batch, mixed_batch), use_pose=False)
+        outputs, out_s = _split_outputs(outputs, n_lab)
     else:
-        outputs = model(batch)
+        outputs = _forward(model, batch)
         if cfg.monodepth_lambda > 0:
             mono_loss = _monodepth_loss(cfg, batch, outputs, generator, tie_break_noise)
     if cfg.monodepth_lambda > 0 and cfg.feat_dist_lambda > 0:
@@ -480,7 +515,7 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
             depths, mix_mask, mixed_imgs, mixed_softmax = pre_mix
         elif cfg.depthmix_online_depth:
             if not fused:
-                out_1 = model(unlabeled_batch)
+                out_1 = _forward(model, unlabeled_batch)
                 if cfg.monodepth_lambda > 0:
                     mono_loss_u = _monodepth_loss(cfg, unlabeled_batch, out_1, generator,
                                                   draws.tie_break_noise_u)
@@ -499,14 +534,12 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
             depths = None
 
         if not fused_mixed:
-            with torch.no_grad():
-                mix_mask = generate_mix_mask(cfg, argmax_u_w, depths, draws, generator)
-                mixed_imgs = strong_transform(cfg, mix_mask, unlabeled_batch[image_key],
-                                              draws, generator)
-                mixed_softmax, _ = mix(mix_mask, teacher_softmax)
+            mix_mask, mixed_imgs, mixed_softmax = _mixed(
+                cfg, argmax_u_w, depths, unlabeled_batch[image_key], teacher_softmax, draws,
+                generator)
             mixed_batch = dict(unlabeled_batch)
             mixed_batch[image_key] = mixed_imgs
-            out_s = model(mixed_batch, use_pose=False)
+            out_s = _forward(model, mixed_batch, use_pose=False)
         l_2, pseudo_label = pseudo_label_loss(cfg, mixed_softmax, out_s["semantics"])
 
         seg_total = seg_total + l_2 + l_1
@@ -520,14 +553,17 @@ def train_step(model: torch.nn.Module, optimizer, batch: Dict[str, torch.Tensor]
                 metrics["debug/depths"] = depths.detach()
     total = seg_total + mono_total + pseudo_depth_loss
 
-    optimizer.zero_grad()
-    if student is not model:
-        total = _reach_all(model, total)
-    total.backward()
+    with span("backward"):
+        optimizer.zero_grad()
+        if student is not model:
+            total = _reach_all(model, total)
+        total.backward()
     step = optimizer.step_count  # steps taken before this one (the JAX state.step)
-    optimizer.step()
+    with span("optimizer"):
+        optimizer.step()
     if cfg.use_ema:
-        update_ema(teacher, student, step, EMA_ALPHA, cfg.ema_names)
+        with span("ema"):
+            update_ema(teacher, student, step, EMA_ALPHA, cfg.ema_names)
     metrics.update({"segmentation_loss": seg_loss.detach(), "mono_loss": mono_loss.detach(),
                     "pseudo_depth_loss": pseudo_depth_loss.detach(),
                     "feat_dist_loss": feat_dist_loss.detach(),

@@ -21,7 +21,9 @@ best (`>=`) and saves the best checkpoint, then the rolling `last_model`,
 then takes the plateau step (`reduce_lr_on_plateau`'s `lr_scale`), then
 early stopping. The step's losses stay on the device until
 `print_interval`, where they are averaged, logged and written
-(`engine/writer.py`: `training/*`; after a validation `validation/*` and
+(`engine/writer.py`: `training/*`, with `training/time_per_image` the wall
+time between two such read-backs, which wait for the device, less
+validations and saves; after a validation `validation/*` and
 `val_metrics/*`); with `unlabeled_segmentation.debug_images` the step's
 `debug/*` tensors are drawn there too (`Run.dump_mix_debug`), and are
 otherwise dropped unread. `resume` (the port's `.pth` or the JAX package's full-state
@@ -46,9 +48,11 @@ ranks as the JAX trainer does, leaves the padded rows out of its means and
 gathers the logged images, so that every rank sees the global scores and
 takes the loop's decisions (best checkpoint, plateau, early stopping) alike.
 `training.profile_dir` traces a window of the loop's steps with
-`torch.profiler` (`StepCapture`). Every key the JAX trainer reads has its
-counterpart here; `training.disable_depth_estimator` is read by nothing,
-as in the JAX package.
+`torch.profiler` (`StepCapture`); the trace shows each step's phases as
+spans (`utils/spans.py`): to_device, train_step, teacher, forward,
+photometric, mix, backward, optimizer, ema. Every key the JAX trainer reads
+has its counterpart here; `training.disable_depth_estimator` is read by
+nothing, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ from ..data.registry import build_loader
 from ..models.joint import build_model
 from ..ops.metrics import AverageMeterDict, RunningScore
 from ..parallel import dist
+from ..utils import spans
 from ..utils.misc import get_logger, set_seeds
 from .checkpoints import ResumeWriter, apply_pretraining, load_resume, save_monodepth_models
 from .depth_estimator import DepthEstimator
@@ -163,7 +168,8 @@ class Run:
             self.unlabeled_iter = infinite_iterator(self.unlabeled_loader)
 
     def to_device(self, host_batch) -> Dict[str, torch.Tensor]:
-        return to_device_batch(host_batch, self.device)
+        with spans.span("to_device"):
+            return to_device_batch(host_batch, self.device)
 
     def next_unlabeled(self) -> Optional[Dict[str, torch.Tensor]]:
         """The next unlabeled batch on the device (None without one)."""
@@ -550,21 +556,25 @@ def _resume(run: Run, training: Dict[str, Any]) -> None:
             logger.info("Auto-resumed %s (iter %d)", last, run.start_iter)
 
 
-def _write_training_scalars(run: Run, cfg: Dict[str, Any], records, step: int) -> None:
-    """At a print interval: resolve the pending records' losses (the one
-    wait for the device in the interval), log their means and write them with
-    the time per image, the learning rate and the host memory (JAX
-    `Trainer.train`, l. 326-361)."""
-    training = cfg["training"]
-    meter = AverageMeterDict()
-    seconds = []
+def _read_back(records) -> None:
+    """The records' losses to the host: the loop's one wait for the device."""
     for r in records:
         for k, v in r.items():
             if isinstance(v, torch.Tensor):
                 r[k] = float(v)
+
+
+def _write_training_scalars(run: Run, cfg: Dict[str, Any], records, step: int,
+                            seconds: float) -> None:
+    """At a print interval, the records read back: log their losses' means
+    and write them with the time per image (`seconds`, the loop's wall time
+    over the records' steps, over their rows), the learning rate and the host
+    memory (JAX `Trainer.train`, l. 326-361)."""
+    training = cfg["training"]
+    meter = AverageMeterDict()
+    for r in records:
         meter.update({k: v for k, v in r.items() if k.endswith("loss")})
-        seconds.append(r["data_seconds"] + r["step_seconds"])
-    time_per_image = sum(seconds) / len(seconds) / training["batch_size"]
+    time_per_image = seconds / len(records) / training["batch_size"]
     logger.info("Iter [%d/%d]  Loss: %.4f  Time/Image: %.4f", step + 1,
                 training["train_iters"], meter.avgs["total_loss"], time_per_image)
     for k, v in meter.avgs.items():
@@ -585,8 +595,11 @@ class StepCapture:
     (`profile_steps` default 5), as the JAX trainer's `jax.profiler` capture
     (JAX `engine/trainer.py:300-317`): started when the loop's step first
     equals `profile_start`, stopped when it reaches `profile_start +
-    profile_steps`. Each profiled step's call is a `record_function` span
-    `step <n>`; the loaders' wait lies between them. The CPU is recorded, and
+    profile_steps`. Each profiled step's call is a span `step <n>` and, inside
+    it, the step's phases (`utils/spans.py`; the names in
+    `engine/train_steps.py::train_step`) are spans too, each a
+    `record_function`; the loaders' wait lies between the steps, the copies
+    of their batches in `to_device` spans. The CPU is recorded, and
     on a CUDA device the device too: a trace that holds no device activity
     there raises. Each rank writes its own Chrome trace (chrome://tracing,
     Perfetto) to `<profile_dir>/trace_rank<r>_steps<first>-<last>.json`.
@@ -600,6 +613,7 @@ class StepCapture:
         self.end = self.start + training.get("profile_steps", 5)
         self.on_cuda = torch.device(device).type == "cuda"
         self.prof = None
+        self.annotating = contextlib.ExitStack()  # the spans' record_function
         self.taken = 0  # the profiled steps
 
     def at(self, step: int) -> None:
@@ -612,6 +626,7 @@ class StepCapture:
                     raise RuntimeError("training.profile_dir: this torch cannot profile CUDA")
             self.prof = torch.profiler.profile(activities=activities)
             self.prof.start()
+            self.annotating.enter_context(spans.annotated())
         if self.prof is not None and step == self.end:
             self.close()
 
@@ -619,13 +634,14 @@ class StepCapture:
         if self.prof is None:
             return contextlib.nullcontext()
         self.taken += 1
-        return torch.profiler.record_function(f"step {step}")
+        return spans.span(f"step {step}")
 
     def close(self) -> None:
         """Stop a capture in progress and write its trace."""
         if self.prof is None:
             return
         prof, self.prof = self.prof, None
+        self.annotating.close()
         prof.stop()
         last = self.start + self.taken - 1
         path = os.path.join(self.dir, f"trace_rank{dist.rank()}_steps{self.start}-{last}.json")
@@ -660,6 +676,11 @@ def _steps(run: Run, cfg: Dict[str, Any], capture: StepCapture) -> List[Dict[str
         raise ValueError(f"the train set ({len(run.train_loader.dataset)} items) holds no "
                          f"batch of {run.batch_size}")
     run.tensorboard_training_images()
+    # the wall time since the last read-back of the losses (which waits for
+    # the device), less `aside`, the host time in it that is no step's:
+    # validations and saves (with the device work queued when they start), a
+    # profiler's start and stop
+    since, aside = time.perf_counter(), 0.0
     # JAX's loop tests `step <= train_iters` here, so that a run resumed at
     # its last iteration takes steps until its epoch ends; this one takes none
     while step + 1 < train_iters and flag:
@@ -673,25 +694,31 @@ def _steps(run: Run, cfg: Dict[str, Any], capture: StepCapture) -> List[Dict[str
                 step += 1
                 t_capture = time.perf_counter()
                 capture.at(step)
-                t0 += time.perf_counter() - t_capture  # a profiler's start or stop is no wait
+                held = time.perf_counter() - t_capture  # a profiler's start or stop is no wait
+                t0 += held
+                aside += held
                 batch = run.to_device(host)
                 unlabeled = run.next_unlabeled()
                 t1 = time.perf_counter()
                 with capture.span(step):
                     record: Dict[str, Any] = dict(run.step(batch, unlabeled))
-                record.update(data_seconds=t1 - t0, step_seconds=time.perf_counter() - t1)
+                record.update(data_seconds=t1 - t0, dispatch_seconds=time.perf_counter() - t1)
                 # the debug tensors stay on the device and are read only where
                 # they are drawn
                 debug = {k: record.pop(k) for k in list(record) if k.startswith("debug/")}
                 records.append(record)
                 pending.append(record)
-                if debug and dist.is_main() and (step + 1) % print_interval == 0:
-                    run.dump_mix_debug(debug, step)
                 if (step + 1) % print_interval == 0:
-                    _write_training_scalars(run, cfg, pending, step)
+                    _read_back(pending)
+                    seconds = time.perf_counter() - since - aside
+                    if debug and dist.is_main():
+                        run.dump_mix_debug(debug, step)
+                    _write_training_scalars(run, cfg, pending, step, seconds)
                     pending = []
+                    since, aside = time.perf_counter(), 0.0
                 if validating and ((step + 1) % current_val_interval(cfg, step + 1) == 0
                                    or step + 1 == train_iters):
+                    t_val = time.perf_counter()
                     val = run.validate(step)
                     # JAX saves best, then last, with the same state: one
                     # host snapshot writes both
@@ -707,6 +734,7 @@ def _steps(run: Run, cfg: Dict[str, Any], capture: StepCapture) -> List[Dict[str
                         run.save_resume(*names)
                     val["save_seconds"] = time.perf_counter() - t_save
                     val["best_iou"] = run.best_iou
+                    aside += time.perf_counter() - t_val
                     record.update({f"val/{k}": v for k, v in val.items()})
                     logger.info("Validation @%d: mIoU=%.4f  best %.4f  %.3f s per batch",
                                 step + 1, run.mIoU, run.best_iou,
@@ -722,10 +750,7 @@ def _steps(run: Run, cfg: Dict[str, Any], capture: StepCapture) -> List[Dict[str
         finally:
             epoch.close()
     run.checkpoints.wait_for_saves()  # land the write in flight before returning
-    for r in pending:
-        for k, v in r.items():
-            if isinstance(v, torch.Tensor):
-                r[k] = float(v)
+    _read_back(pending)
     return records
 
 
@@ -738,8 +763,10 @@ def train_main(cfg: Dict[str, Any], device: str = "cuda:0", run: Optional[Run] =
 
     Returns one record per step: its losses, `data_seconds` (host time
     waiting on the loaders, the copies to the device included) and
-    `step_seconds` (host time of the step's call, which returns once its
-    work is queued on the device); after a validation also its record
+    `dispatch_seconds` (host time of the step's call, which returns once its
+    work is queued on the device: not the step's time on the device, which
+    `training/time_per_image` gives over each print interval); after a
+    validation also its record
     (`Run.validate`, with `best_iou` after the comparison and
     `save_seconds`, the host time the loop waited for the checkpoint save)
     under keys prefixed `val/`. The losses are read from the device at each print

@@ -1,1 +1,2 @@
-"""Shared utilities of the port: seeding, filesystem glob, logging."""
+"""Shared utilities of the port: seeding, filesystem glob, logging, the
+phase spans of the host's work (`spans.py`)."""

@@ -6,7 +6,8 @@ A tiny synthetic `train_main` run on the CPU (the packaged SDE config at
 resnet18, 64x64, batch 2, `train_iters` 5: steps 1 to 4):
 - with `profile_start` 2 and `profile_steps` 2 it writes one Chrome trace,
   `trace_rank0_steps2-3.json`, whose JSON holds exactly the step spans
-  `step 2` and `step 3`, and its losses equal the run without a capture;
+  `step 2` and `step 3`, each holding the step's phase spans
+  (`utils/spans.py`), and its losses equal the run without a capture;
 - without `profile_dir` no profiler is made, and the run's log path holds
   the files it held before the capture existed;
 - a window that the run ends inside (`profile_start` 3, `profile_steps` 5)
@@ -55,6 +56,15 @@ def _step_spans(path):
             if e.get("cat") == "user_annotation" and e["name"].startswith("step ")]
 
 
+def _phases_in_steps(path):
+    """{step span: the names of the annotations inside it}."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "user_annotation"]
+    return {s["name"]: {e["name"] for e in events if e is not s
+                        and s["ts"] <= e["ts"] and e["ts"] + e["dur"] <= s["ts"] + s["dur"]}
+            for s in events if s["name"].startswith("step ")}
+
+
 @pytest.fixture(scope="module")
 def plain(tmp_path_factory):
     """A run without `profile_dir`, in which making a profiler raises."""
@@ -76,6 +86,9 @@ def test_profile_dir_traces_exactly_the_window(plain, tmp_path):
                    profile_steps=2)
     assert os.listdir(profile_dir) == ["trace_rank0_steps2-3.json"]
     assert _step_spans(profile_dir / "trace_rank0_steps2-3.json") == ["step 2", "step 3"]
+    phases = _phases_in_steps(profile_dir / "trace_rank0_steps2-3.json")
+    assert sorted(phases) == ["step 2", "step 3"]
+    assert all({"train_step", "forward", "backward"} <= names for names in phases.values())
     assert len(records) == len(plain_records) == 4
     for got, want in zip(records, plain_records):
         assert {k: got[k] for k in LOSSES} == {k: want[k] for k in LOSSES}
